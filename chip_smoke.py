@@ -5,16 +5,27 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. device:  the card's name and power limit (nvidia-smi); no CUDA, no run
-  2. build:   nvcc builds the CUDA kernel from csrc/ (seconds and ptxas report)
+  2. build:   nvcc builds the CUDA kernels from csrc/, one nvcc per library,
+              all at once (seconds and ptxas report)
   3. kernels: each kernel against its plain PyTorch version at the flagship
-              train step's shapes, with the tolerance stated, and timed beside
+              train step's shapes (attention also at head width 64 and a
+              ragged sequence), with the tolerance stated, and timed beside
               its plain version, a PyTorch library yardstick and its bound
   4. small:   one train step's loss and grads on the card (kernels) against
-              the CPU (plain versions) at a small size
+              the CPU (plain versions) at a small size, with naive and with
+              flash attention
   5. step:    the flagship train step at full width (472M params, batch 16,
-              seq 1024; fused CE head, fused AdamW, naive attention), granted
-              through a one-device ClaimEnv: 1 warm-up and 3 timed steps, with
-              the kernels' launch counts reset just before and read just after
+              seq 1024), granted through a one-device ClaimEnv, twice:
+              a. fused CE head, fused AdamW, naive attention, remat "none";
+              b. the JAX bench's configuration (bench.py bench_tpu_step):
+                 flash attention, remat "dots", chunked CE, tree AdamW, then
+                 profiled;
+              1 warm-up and 3 timed steps each
+  6. long:    bench.py's long8192: the same width at seq 8192, batch 2,
+              remat "dots", flash attention; 1 warm-up and 2 timed steps,
+              then profiled
+Each step phase sets every kernel's launch count to 0 just before it and
+reads the counts just after.
 
 Then one JSON line {"kernels": [...]} and, last, the run's verdict line
 {"ok": true, "device": {...}}.  Every time is from this run, on this card.
@@ -36,8 +47,20 @@ TIMED_STEPS = 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+LONG = dict(FLAGSHIP, max_seq=8192)  # bench.py long8192
+LONG_BATCH = 2
+LONG_TIMED_STEPS = 2
 CE_TOL = 2e-3  # lse/target logit, f32 sums of bf16 products in another order
 ADAMW_P_TOL = 1e-6  # params; moments must be bit-identical
+# Attention, kernel against plain on the same bf16 inputs: the kernels round
+# the probabilities (and dS) to bf16 where they feed a product, the plain
+# versions keep f32, so o, dq, dk and dv within ATTN_TOL of their own max
+# |value|; lse, an f32 sum of exact bf16 products, within LSE_TOL absolute.
+ATTN_TOL = 2e-2
+LSE_TOL = 1e-3
+# [B, H, S, hd]: the flagship attention, head width 64 at the same d_model,
+# and a ragged sequence.
+ATTN_SHAPES = ((BATCH, 16, 1024, 128), (BATCH, 32, 1024, 64), (2, 4, 1000, 128))
 
 
 def fail(msg: str) -> None:
@@ -69,13 +92,15 @@ def bound(ops: float, ops_peak: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_build(build):
+def phase_build(build, libs):
     t0 = time.perf_counter()
-    lib = build.build("ce_fwd", ("ce_fwd.cu",))
-    log(f"build: ce_fwd with nvcc in {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    for line in build.build_log(lib).read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: ptxas: {line.strip()}")
+    paths = build.build_all(libs)
+    log(f"build: {', '.join(name for name, _ in libs)} with nvcc in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for lib in paths:
+        for line in build.build_log(lib).read_text().splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "spill")):
+                log(f"build: ptxas ({lib.name}): {line.strip()}")
 
 
 def phase_ce(torch, ce_kernel) -> dict:
@@ -171,54 +196,148 @@ def phase_adamw(torch, model, opt_kernel) -> dict:
     }
 
 
-def phase_small(torch, model, convert):
+def phase_attention(torch, attn_kernel) -> list[dict]:
+    """attn_fwd and attn_bwd against their plain versions at ATTN_SHAPES,
+    then timed at the flagship shape beside the plain versions, PyTorch's
+    flash SDPA (forward; backward alone on a kept graph) and the bounds."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    errs = {"attn_fwd": 0.0, "attn_bwd": 0.0}
+    for shape in ATTN_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        # q pre-scaled by hd^-½ (as _layer hands it over): unit-variance scores.
+        q = (torch.randn(shape, generator=gen, device="cuda") * shape[-1] ** -0.5).bfloat16()
+        k, v, do = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+        o, lse = attn_kernel.attn_fwd(q, k, v)
+        torch.cuda.synchronize()
+        want_o, want_lse = attn_kernel.attn_fwd_plain(q, k, v)
+        o_rel = float((o.float() - want_o.float()).abs().max()) / float(want_o.float().abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        if not (o_rel <= ATTN_TOL and lse_err <= LSE_TOL):
+            fail(f"attn_fwd {shape}: o off by {o_rel} of its max (> {ATTN_TOL}) "
+                 f"or lse by {lse_err} (> {LSE_TOL})")
+        errs["attn_fwd"] = max(errs["attn_fwd"], float((o.float() - want_o.float()).abs().max()),
+                               lse_err)
+        del o, lse
+        # The backward from the plain forward's (o, lse), so it is held alone.
+        got = attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do))):
+            fail(f"attn_bwd {shape}: two runs on the same inputs differ")
+        want = attn_kernel.attn_bwd_plain(q, k, v, want_o, want_lse, do)
+        rels = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g.float() - w.float()).abs().max())
+            rels.append(err / float(w.float().abs().max()))
+            errs["attn_bwd"] = max(errs["attn_bwd"], err)
+            if not rels[-1] <= ATTN_TOL:
+                fail(f"attn_bwd {shape}: {name} off by {rels[-1]} of its max (> {ATTN_TOL})")
+        log(f"kernels: attention {list(shape)}: o {o_rel:.3g} of max, lse {lse_err:.3g} abs, "
+            f"dq/dk/dv {', '.join(f'{r:.3g}' for r in rels)} of max (tol {ATTN_TOL}, lse "
+            f"{LSE_TOL}); backward bit-identical over two runs")
+        del got, want, want_o, want_lse
+
+    B, H, S, hd = ATTN_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = (torch.randn(B, H, S, hd, generator=gen, device="cuda") * hd ** -0.5).bfloat16()
+    k, v, do = (torch.randn(B, H, S, hd, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    o, lse = attn_kernel.attn_fwd(q, k, v)
+    pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
+    tensor_bytes = 2.0 * B * H * S * hd
+    out = []
+    for name, kernel, plain, products, n_tensors in (
+            ("attn_fwd", lambda: attn_kernel.attn_fwd(q, k, v),
+             lambda: attn_kernel.attn_fwd_plain(q, k, v), 2, 4),
+            ("attn_bwd", lambda: attn_kernel.attn_bwd(q, k, v, o, lse, do),
+             lambda: attn_kernel.attn_bwd_plain(q, k, v, o, lse, do), 5, 8)):
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, iters=5)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            if name == "attn_fwd":
+                library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=1.0))
+            else:
+                qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+                lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=1.0)
+                library_ms = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_o, (qg, kg, vg), do, retain_graph=True))
+                del lib_o, qg, kg, vg
+        flops = 2.0 * hd * pairs * products
+        bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, n_tensors * tensor_bytes + 4.0 * B * H * S)
+        log(f"kernels: {name} {[B, H, S, hd]} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"library_ms={library_ms:.3f} (flash SDPA) bound_ms={bound_ms:.3f} ({bound_by}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        out.append({
+            "name": name, "route": "cuda", "source": f"tpudra_torch/workload/csrc/{name}.cu",
+            "replaces": "tpudra/workload/model.py:288 (_layer's splash call, built at :272-287; "
+                        + ("forward flash_attention_kernel)" if name == "attn_fwd"
+                           else "fused backward _flash_attention_dkv_kernel)"),
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+        })
+    return out
+
+
+def phase_small(torch, model, convert, attn_kernel):
     """The same small train step's loss and grads on the card (kernels) and
-    on the CPU (plain versions, held against the JAX package by the tests).
-    bf16 rounds at other places on the two devices: loss within 2e-2, each
-    grad leaf within 5e-2 of its own max |g|."""
-    cfg = model.ModelConfig(vocab=512, d_model=128, n_heads=2, n_layers=2, d_ff=256, max_seq=64,
-                            attention="naive", ce_impl="fused", opt_impl="fused")
-    gen = torch.Generator().manual_seed(3)
-    cpu_params = model.init_params(gen, cfg, device="cpu")
-    tokens = torch.randint(0, cfg.vocab, (4, cfg.max_seq), generator=gen)
-    vg = model.value_and_grad(model.loss_fn)
-    loss_c, grads_c = vg(cpu_params, tokens, cfg)
-    gpu_params = convert.tree_map(lambda p: p.cuda(), cpu_params)
-    loss_g, grads_g = vg(gpu_params, tokens.cuda(), cfg)
-    if not abs(float(loss_g) - float(loss_c)) <= 2e-2:
-        fail(f"small step: loss {float(loss_g)} on the card, {float(loss_c)} on the CPU")
-    worst = 0.0
-    for gc, gg in zip(convert.tree_leaves(grads_c), convert.tree_leaves(grads_g)):
-        rel = float((gg.cpu() - gc).abs().max()) / float(gc.abs().max())
-        worst = max(worst, rel)
-    if not worst <= 5e-2:
-        fail(f"small step: a grad leaf differs by {worst} of its max between card and CPU")
-    init, step = model.make_train_step(cfg)
-    _, _, loss = step(gpu_params, init(gpu_params), tokens.cuda())
-    if not math.isfinite(float(loss)):
-        fail("small step: non-finite loss")
-    log(f"small: loss card={float(loss_g):.6f} cpu={float(loss_c):.6f}, "
-        f"worst grad leaf diff {worst:.3g} of its max (tol 5e-2)")
+    on the CPU (plain versions, held against the JAX package by the tests),
+    with naive attention and with the flash kernels (S a multiple of 128, as
+    the tests run splash).  bf16 rounds at other places on the two devices:
+    loss within 2e-2, each grad leaf within 5e-2 of its own max |g|."""
+    for attention, seq in (("naive", 64), ("splash", 128)):
+        cfg = model.ModelConfig(vocab=512, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+                                max_seq=seq, attention=attention, ce_impl="fused",
+                                opt_impl="fused")
+        gen = torch.Generator().manual_seed(3)
+        cpu_params = model.init_params(gen, cfg, device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (4, cfg.max_seq), generator=gen)
+        vg = model.value_and_grad(model.loss_fn)
+        loss_c, grads_c = vg(cpu_params, tokens, cfg)
+        gpu_params = convert.tree_map(lambda p: p.cuda(), cpu_params)
+        before = attn_kernel.attn_bwd.launches
+        loss_g, grads_g = vg(gpu_params, tokens.cuda(), cfg)
+        if (attn_kernel.attn_bwd.launches > before) != (attention == "splash"):
+            fail(f"small step ({attention}): attention kernels launched "
+                 f"{attn_kernel.attn_bwd.launches - before} times")
+        if not abs(float(loss_g) - float(loss_c)) <= 2e-2:
+            fail(f"small step ({attention}): loss {float(loss_g)} on the card, "
+                 f"{float(loss_c)} on the CPU")
+        worst = 0.0
+        for gc, gg in zip(convert.tree_leaves(grads_c), convert.tree_leaves(grads_g)):
+            rel = float((gg.cpu() - gc).abs().max()) / float(gc.abs().max())
+            worst = max(worst, rel)
+        if not worst <= 5e-2:
+            fail(f"small step ({attention}): a grad leaf differs by {worst} of its max "
+                 "between card and CPU")
+        init, step = model.make_train_step(cfg)
+        _, _, loss = step(gpu_params, init(gpu_params), tokens.cuda())
+        if not math.isfinite(float(loss)):
+            fail(f"small step ({attention}): non-finite loss")
+        log(f"small ({attention}, seq {seq}): loss card={float(loss_g):.6f} "
+            f"cpu={float(loss_c):.6f}, worst grad leaf diff {worst:.3g} of its max (tol 5e-2)")
 
 
-def phase_step(torch, model, envspec, convert, ce_kernel, opt_kernel) -> dict:
+def drive_step(torch, model, envspec, convert, counters, label, cfg, batch, timed, profile=False):
+    """Train ``cfg`` on the one granted device: 1 warm-up and ``timed`` timed
+    steps, every kernel's launch count set to 0 just before and read just
+    after.  Checks the losses; returns {kernel name: launches}."""
     grant = envspec.ClaimEnv.from_environ({"TPU_VISIBLE_DEVICES": "0", "TPUDRA_CHIP_COORDS": "0,0,0"})
     if len(grant.visible_devices) != 1 or grant.mesh_bounds != (1, 1, 1):
         fail(f"one-device grant parsed as {grant.visible_devices} {grant.mesh_bounds}")
     device = torch.device("cuda", 0)  # the granted device, as the container sees it
-    cfg = model.ModelConfig(**FLAGSHIP, ce_impl="fused", opt_impl="fused", attention="naive",
-                            remat="none")
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init_params(gen, cfg, device=device)
     n_params = sum(p.numel() for p in convert.tree_leaves(params))
-    tokens = torch.randint(0, cfg.vocab, (BATCH, cfg.max_seq), generator=gen, device=device)
+    tokens = torch.randint(0, cfg.vocab, (batch, cfg.max_seq), generator=gen, device=device)
     init, step = model.make_train_step(cfg)
     state = init(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ce_kernel.ce_fwd.launches = 0
-    opt_kernel.adamw_step.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     params, state, loss = step(params, state, tokens)
     first = float(loss)  # synchronises
@@ -226,36 +345,49 @@ def phase_step(torch, model, envspec, convert, ce_kernel, opt_kernel) -> dict:
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         params, state, loss = step(params, state, tokens)
         losses.append(loss)
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TIMED_STEPS
-    launches = {"ce_fwd": ce_kernel.ce_fwd.launches, "adamw_step": opt_kernel.adamw_step.launches}
+    step_s = (time.perf_counter() - t0) / timed
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     losses = [first] + [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite loss in the flagship steps: {losses}")
+        fail(f"{label}: non-finite loss: {losses}")
     if abs(first - math.log(cfg.vocab)) > 1.0:
-        fail(f"step-1 loss {first} is not within 1 of ln({cfg.vocab}) = {math.log(cfg.vocab):.3f}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"the flagship step never launched the {name} kernel")
-    tokens_per_step = BATCH * (cfg.max_seq - 1)
+        fail(f"{label}: step-1 loss {first} is not within 1 of ln({cfg.vocab}) = "
+             f"{math.log(cfg.vocab):.3f}")
+    tokens_per_step = batch * (cfg.max_seq - 1)
     flops = tokens_per_step * (6 * n_params + 12 * cfg.n_layers * cfg.max_seq * cfg.d_model)
-    log(f"step: {n_params} params, batch {BATCH}, seq {cfg.max_seq}; losses {losses}")
-    log(f"step: warm-up step {warm_s * 1e3:.1f} ms; step_ms={step_s * 1e3:.2f} "
+    log(f"{label}: {n_params} params, batch {batch}, seq {cfg.max_seq}, attention "
+        f"{cfg.attention}, remat {cfg.remat}, ce {cfg.ce_impl}, opt {cfg.opt_impl}; losses {losses}")
+    log(f"{label}: warm-up step {warm_s * 1e3:.1f} ms; step_ms={step_s * 1e3:.2f} "
         f"tokens_per_s={tokens_per_step / step_s:.0f} model_tflops_per_s={flops / step_s / 1e12:.1f} "
         f"mfu_pct={flops / step_s / PEAK_BF16_FLOPS * 100:.1f} (of {PEAK_BF16_FLOPS / 1e12:.0f}) "
         f"max_memory_allocated_gb={peak_gb:.2f}")
-    log(f"step: launches over {1 + TIMED_STEPS} steps: {launches}")
-    phase_profile(torch, lambda: step(params, state, tokens), step_s * 1e3)
+    log(f"{label}: launches over {1 + timed} steps: {launches}")
+    if profile:
+        phase_profile(torch, label, lambda: step(params, state, tokens), step_s * 1e3)
     return launches
+
+
+def expect_attention_launches(label, cfg, launches, steps):
+    """The flash kernels' launches that cfg.remat implies: the attention
+    core is no aten.mm, so "dots" recomputes it like "full" (2 forward
+    launches per layer and step, against 1 under "none"); 1 backward."""
+    per_layer = 1 if cfg.remat == "none" else 2
+    want = {"attn_fwd": per_layer * cfg.n_layers * steps, "attn_bwd": cfg.n_layers * steps}
+    got = {name: launches[name] for name in want}
+    if got != want:
+        fail(f"{label}: attention kernel launches {got}, remat {cfg.remat!r} implies {want}")
 
 
 # Kernel-name fragments per category of the step's device time.
 CATEGORIES = (
+    ("attention kernels (attn_fwd, attn_bwd)",
+     ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")),
     ("ce_fwd kernel", ("ce_fwd_kernel",)),
     ("adamw kernel", ("adamw_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -263,10 +395,10 @@ CATEGORIES = (
 )
 
 
-def phase_profile(torch, run_step, step_ms: float):
-    """One more flagship step under torch.profiler (after the counted run):
-    device time by category and the top kernels.  Busy share = summed
-    kernel time over the unprofiled step time (one stream, no overlap)."""
+def phase_profile(torch, label, run_step, step_ms: float):
+    """One more step under torch.profiler (after the counted ones): device
+    time by category and the top kernels.  Busy share = summed kernel time
+    over the unprofiled step time (one stream, no overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -276,7 +408,7 @@ def phase_profile(torch, run_step, step_ms: float):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.device_time_total for e in kernels) / 1e3
     if total <= 0:
-        log("profile: the profiler saw no device time")
+        log(f"profile ({label}): the profiler saw no device time")
         return
     by_cat: dict[str, float] = {}
     for e in kernels:
@@ -284,12 +416,13 @@ def phase_profile(torch, run_step, step_ms: float):
         cat = next((c for c, keys in CATEGORIES if any(k in name for k in keys)),
                    "other (elementwise, reductions, copies)")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.device_time_total / 1e3
-    log(f"profile: kernel time {total:.2f} ms in a {step_ms:.2f} ms step "
+    log(f"profile ({label}): kernel time {total:.2f} ms in a {step_ms:.2f} ms step "
         f"(busy share {total / step_ms * 100:.1f}%)")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        log(f"profile: {cat}: {ms:.2f} ms ({ms / total * 100:.1f}%)")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
-        log(f"profile: kernel {e.device_time_total / 1e3:8.2f} ms x{e.count:<4d} {e.key[:90]}")
+        log(f"profile ({label}): {cat}: {ms:.2f} ms ({ms / total * 100:.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:12]:
+        log(f"profile ({label}): kernel {e.device_time_total / 1e3:8.2f} ms x{e.count:<4d} "
+            f"{e.key[:90]}")
 
 
 def main() -> int:
@@ -298,7 +431,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
         return 2
-    from tpudra_torch.workload import _build, ce_kernel, convert, envspec, model, opt_kernel
+    from tpudra_torch.workload import (
+        _build,
+        attn_kernel,
+        ce_kernel,
+        convert,
+        envspec,
+        model,
+        opt_kernel,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -315,15 +456,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build(_build)
+    phase_build(_build, [ce_kernel._LIB, attn_kernel._FWD_LIB, attn_kernel._BWD_LIB])
     kernels = [phase_ce(torch, ce_kernel), phase_adamw(torch, model, opt_kernel)]
     torch.cuda.empty_cache()
-    phase_small(torch, model, convert)
+    kernels += phase_attention(torch, attn_kernel)
     torch.cuda.empty_cache()
-    launches = phase_step(torch, model, envspec, convert, ce_kernel, opt_kernel)
+    phase_small(torch, model, convert, attn_kernel)
+    torch.cuda.empty_cache()
+
+    counters = {"ce_fwd": ce_kernel.ce_fwd, "adamw_step": opt_kernel.adamw_step,
+                "attn_fwd": attn_kernel.attn_fwd, "attn_bwd": attn_kernel.attn_bwd}
+    drive = lambda *a, **kw: drive_step(torch, model, envspec, convert, counters, *a, **kw)  # noqa: E731
+    cfg = model.ModelConfig(**FLAGSHIP, ce_impl="fused", opt_impl="fused", attention="naive",
+                            remat="none")
+    fused = drive("step (fused CE, fused AdamW, naive)", cfg, BATCH, TIMED_STEPS)
+    for name in ("ce_fwd", "adamw_step"):
+        if fused[name] <= 0:
+            fail(f"the fused flagship step never launched the {name} kernel")
+    torch.cuda.empty_cache()
+
+    # bench.py bench_tpu_step: attention="splash" with the defaults remat
+    # "dots", ce_impl "chunked", opt_impl "tree".
+    cfg = model.ModelConfig(**FLAGSHIP, attention="splash")
+    label = "step (bench: splash, dots, chunked CE, tree AdamW)"
+    bench = drive(label, cfg, BATCH, TIMED_STEPS, profile=True)
+    expect_attention_launches(label, cfg, bench, 1 + TIMED_STEPS)
+    torch.cuda.empty_cache()
+
+    cfg = model.ModelConfig(**LONG, attention="splash")
+    label = "long (bench long8192: splash, dots)"
+    long = drive(label, cfg, LONG_BATCH, LONG_TIMED_STEPS, profile=True)
+    expect_attention_launches(label, cfg, long, 1 + LONG_TIMED_STEPS)
+
+    # Each kernel's launches from the step that runs it.
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_step"] = launches[k["name"]] / (1 + TIMED_STEPS)
+        runs = fused if k["name"] in ("ce_fwd", "adamw_step") else bench
+        k["launches"] = runs[k["name"]]
+        k["launches_per_step"] = k["launches"] / (1 + TIMED_STEPS)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -7,4 +7,5 @@ consumed a claim, on a CUDA device.
 - convert:    parameter trees to and from numpy, for carrying JAX weights over
 - ce_kernel:  fused cross-entropy head (hand-written CUDA forward)
 - opt_kernel: fused AdamW sweep with bf16 moments (Triton)
+- attn_kernel: causal flash attention, forward and backward (hand-written CUDA)
 """

@@ -2,10 +2,11 @@
 ctypes.
 
 Each library is compiled from sources in ``csrc/`` only, for sm_90a, into
-``tpudra_torch/build/`` under a name keyed by a hash of its sources and
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is.  The sources expose plain C functions (no PyTorch headers), which keeps
-a build to seconds.  A failed build raises with nvcc's output.
+``tpudra_torch/build/`` under a name keyed by a hash of its sources, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  The sources expose plain
+C functions (no PyTorch headers), which keeps a build to seconds.  A failed
+build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -44,7 +46,7 @@ def nvcc_path() -> str:
 def library_path(name: str, sources: tuple[str, ...]) -> Path:
     """Where the library built from ``sources`` (names under csrc/) lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -79,6 +81,13 @@ def build(name: str, sources: tuple[str, ...]) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(libs) -> list[Path]:
+    """Build every ``(name, sources)`` of ``libs`` at once, one nvcc each;
+    returns their paths in order."""
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        return list(pool.map(lambda lib: build(*lib), libs))
 
 
 @functools.cache

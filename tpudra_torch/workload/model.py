@@ -5,15 +5,16 @@ The same causal transformer as the JAX package, with the same config
 fields, the same parameter tree (nested dicts, stacked leading layer axis)
 and the same numerics: bf16 activations and matmuls with f32 master params,
 RMSNorm and softmax in f32, tanh-GELU, a chunked or fused cross-entropy
-head, and AdamW with bf16 moments (tree or fused).
+head, and AdamW with bf16 moments (tree or fused), and causal attention
+naive or through the flash kernels (attn_kernel).
 
 Functions keep the JAX names so each has a visible counterpart.  Parameters
 are plain tensors; ``value_and_grad`` differentiates a loss with respect to
 a parameter tree, and the optimizers update params and moments in place.
 
-Ported: the dense single-device path with naive attention.  Not yet ported
-(raising NotImplementedError with the ROADMAP item that ports each): the
-Pallas attention paths, MoE layers and the tensor-parallel layout.
+Ported: the dense single-device path, with naive or flash attention.  Not
+yet ported (raising NotImplementedError with the ROADMAP item that ports
+each): MoE layers and the tensor-parallel layout.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from tpudra_torch.workload.attn_kernel import HEAD_DIMS, flash_attention
 from tpudra_torch.workload.ce_kernel import fused_ce_mean, matmul_f32
 from tpudra_torch.workload.convert import tree_leaves, tree_map, tree_unflatten
 from tpudra_torch.workload.device import resolve_device
@@ -51,10 +53,12 @@ class ModelConfig:
     # Optimizer: "tree" (per-leaf PyTorch ops) or "fused" (opt_kernel: one
     # in-place sweep per leaf).
     opt_impl: str = "tree"
-    # Attention core: "auto" | "naive" | "flash"/"splash".  "auto" takes the
-    # naive path (as the JAX package does off a TPU); the kernel paths are
-    # not ported yet.
+    # Attention core: "auto" | "naive" | "flash"/"splash" (both name the
+    # kernel path, attn_kernel.flash_attention); see use_flash_attention.
     attention: str = "auto"
+    # Block sizes of the TPU's splash kernel, validated as the JAX package
+    # validates them.  The CUDA kernels' tiles are fixed in their sources, so
+    # these tune nothing here.
     attn_block_q: int = 0
     attn_block_kv: int = 0
     # Rematerialization of the layer body:
@@ -106,13 +110,28 @@ class ModelConfig:
     def act_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.compute_dtype == "bf16" else torch.float32
 
+    def use_flash_attention(self, seq_len: int, device: torch.device) -> bool:
+        """Whether ``_layer`` takes the flash kernels.  "flash"/"splash"
+        always, "naive" never.  "auto" only where the kernels run and pay:
+        a CUDA device, one visible device (the JAX package's conservative
+        rule: a multi-device program shards attention another way), bf16,
+        and a head width the kernels are built for.  The kernels mask a
+        ragged sequence, so ``seq_len`` sets no condition; off CUDA "auto"
+        is naive, as the JAX package's is off a TPU."""
+        del seq_len
+        if self.attention in ("flash", "splash"):
+            return True
+        if self.attention == "naive":
+            return False
+        return (
+            torch.device(device).type == "cuda"
+            and torch.cuda.device_count() == 1
+            and self.compute_dtype == "bf16"
+            and self.head_dim in HEAD_DIMS
+        )
+
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.attention in ("flash", "splash"):
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported yet (ROADMAP queue 2, "
-            "item 1: causal attention kernel); use attention='naive' or 'auto'"
-        )
     if cfg.num_experts:
         raise NotImplementedError(
             "num_experts > 0 is not ported yet (ROADMAP queue 1, item 5: MoE)"
@@ -162,7 +181,9 @@ def _layer(cfg: ModelConfig, x, layer_params):
 
     Every projection is a 2-D product over the flattened [B*S] rows (an
     ``aten.mm``, what the "dots" remat policy keeps); attention's products
-    carry batch dims (``aten.bmm``) and are recomputed under "dots".
+    carry batch dims (``aten.bmm``), and the flash kernels are no ``aten.mm``,
+    so under "dots" the attention core is recomputed, as JAX recomputes the
+    splash call.
     """
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
@@ -174,13 +195,19 @@ def _layer(cfg: ModelConfig, x, layer_params):
     wqkv = p["wqkv"].to(act).reshape(D, H * 3 * hd)
     qkv = (h.reshape(B * S, D) @ wqkv).view(B, S, H, 3, hd).permute(3, 0, 2, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # each [B, H, S, hd]
-    # Scores: the product in the activation dtype, then f32 and the scale;
-    # softmax in f32; the masked value is -1e30 (not -inf), as in JAX.
-    scores = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
-    mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-    scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(act)
-    attn = torch.matmul(probs, v)  # [B, H, S, hd]
+    if cfg.use_flash_attention(S, x.device):
+        # q scaled in the activation dtype before the kernel, as the JAX
+        # model scales it before splash.
+        attn = flash_attention(q * (hd ** -0.5), k, v)
+    else:
+        # Scores: the product in the activation dtype, then f32 and the
+        # scale; softmax in f32; the masked value is -1e30 (not -inf), as in
+        # JAX.
+        scores = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
+        mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+        scores = scores.masked_fill(~mask, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(act)
+        attn = torch.matmul(probs, v)  # [B, H, S, hd]
     attn = attn.permute(0, 2, 1, 3).reshape(B * S, H * hd)
     x = x + (attn @ p["wo"].to(act).reshape(H * hd, D)).view(B, S, D)
 
