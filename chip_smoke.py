@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build:   nvcc builds the CUDA kernels from csrc/, one nvcc per library,
               all at once (seconds and ptxas report)
   3. kernels: each kernel against its plain PyTorch version at the flagship
-              train step's shapes (attention also at head width 64 and a
-              ragged sequence), with the tolerance stated, and timed beside
-              its plain version, a PyTorch library yardstick and its bound
+              train step's shapes (attention also at head width 64, a
+              ragged sequence and the long step's seq 8192, row by row),
+              with the tolerance stated, and timed beside its plain
+              version, a PyTorch library yardstick and its bound
   4. small:   one train step's loss and grads on the card (kernels) against
               the CPU (plain versions) at a small size, with naive and with
               flash attention
@@ -54,13 +55,16 @@ CE_TOL = 2e-3  # lse/target logit, f32 sums of bf16 products in another order
 ADAMW_P_TOL = 1e-6  # params; moments must be bit-identical
 # Attention, kernel against plain on the same bf16 inputs: the kernels round
 # the probabilities (and dS) to bf16 where they feed a product, the plain
-# versions keep f32, so o, dq, dk and dv within ATTN_TOL of their own max
-# |value|; lse, an f32 sum of exact bf16 products, within LSE_TOL absolute.
+# versions keep f32, so every row of o, dq, dk and dv within ATTN_TOL of
+# that row's own norm (attn_kernel.max_row_err); lse, an f32 sum of exact
+# bf16 products, within LSE_TOL absolute.  A kernel that skips one tile
+# misses it by 20x or more (phase_attention checks that too).
 ATTN_TOL = 2e-2
 LSE_TOL = 1e-3
 # [B, H, S, hd]: the flagship attention, head width 64 at the same d_model,
-# and a ragged sequence.
-ATTN_SHAPES = ((BATCH, 16, 1024, 128), (BATCH, 32, 1024, 64), (2, 4, 1000, 128))
+# a ragged sequence, and the long8192 step's attention.
+ATTN_SHAPES = ((BATCH, 16, 1024, 128), (BATCH, 32, 1024, 64), (2, 4, 1000, 128),
+               (LONG_BATCH, 16, 8192, 128))
 
 
 def fail(msg: str) -> None:
@@ -196,13 +200,45 @@ def phase_adamw(torch, model, opt_kernel) -> dict:
     }
 
 
+def by_slice(torch, fn, *tensors):
+    """``fn`` over one (b, h) slice at a time, its outputs stacked back to
+    [B, H, ...]: the kernels treat each slice alone, and the plain versions'
+    f32 scores stay one [S, S] at a time (268 MB at S = 8192)."""
+    B, H = tensors[0].shape[:2]
+    outs = [fn(*(t[b:b + 1, h:h + 1] for t in tensors)) for b in range(B) for h in range(H)]
+    return tuple(torch.cat(parts).reshape(B, H, *parts[0].shape[2:]) for parts in zip(*outs))
+
+
+def skipped_tile(torch, q, k, v, o, lse, do):
+    """What kernels that skip one tile would return, from the plain math:
+    the causal pairs of the last 32 queries (a q tile of the dk/dv kernel)
+    and the 64 keys just below the diagonal tile dropped.  Gives the
+    forward's o and the backward's dk, dv (from the true o and lse)."""
+    S = q.shape[-2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    drop = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    drop[S - 32:, S - 128:S - 64] = True
+    s = s.masked_fill(drop, float("-inf"))
+    bad_o = torch.matmul(torch.softmax(s, dim=-1), v.float())
+    p = torch.exp(s - lse[..., None])
+    dof = do.float()
+    ds = (torch.matmul(dof, v.float().transpose(-1, -2))
+          - (o.float() * dof).sum(dim=-1, keepdim=True)) * p
+    bad_dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    bad_dv = torch.matmul(p.transpose(-1, -2), dof)
+    return bad_o.bfloat16(), bad_dk.bfloat16(), bad_dv.bfloat16()
+
+
 def phase_attention(torch, attn_kernel) -> list[dict]:
-    """attn_fwd and attn_bwd against their plain versions at ATTN_SHAPES,
-    then timed at the flagship shape beside the plain versions, PyTorch's
-    flash SDPA (forward; backward alone on a kept graph) and the bounds."""
+    """attn_fwd and attn_bwd against their plain versions at ATTN_SHAPES
+    (row by row, attn_kernel.max_row_err), a check that the comparison
+    rejects a kernel that skips one tile, then timed at the flagship shape
+    beside the plain versions, PyTorch's flash SDPA (forward; backward alone
+    on a kept graph) and the bounds."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    row_err = attn_kernel.max_row_err
     errs = {"attn_fwd": 0.0, "attn_bwd": 0.0}
     for shape in ATTN_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -211,11 +247,11 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
         k, v, do = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
         o, lse = attn_kernel.attn_fwd(q, k, v)
         torch.cuda.synchronize()
-        want_o, want_lse = attn_kernel.attn_fwd_plain(q, k, v)
-        o_rel = float((o.float() - want_o.float()).abs().max()) / float(want_o.float().abs().max())
+        want_o, want_lse = by_slice(torch, attn_kernel.attn_fwd_plain, q, k, v)
+        o_err = row_err(o, want_o)
         lse_err = float((lse - want_lse).abs().max())
-        if not (o_rel <= ATTN_TOL and lse_err <= LSE_TOL):
-            fail(f"attn_fwd {shape}: o off by {o_rel} of its max (> {ATTN_TOL}) "
+        if not (o_err <= ATTN_TOL and lse_err <= LSE_TOL):
+            fail(f"attn_fwd {shape}: a row of o off by {o_err} of its norm (> {ATTN_TOL}) "
                  f"or lse by {lse_err} (> {LSE_TOL})")
         errs["attn_fwd"] = max(errs["attn_fwd"], float((o.float() - want_o.float()).abs().max()),
                                lse_err)
@@ -226,17 +262,31 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
         if not all(torch.equal(a, b) for a, b in zip(
                 got, attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do))):
             fail(f"attn_bwd {shape}: two runs on the same inputs differ")
-        want = attn_kernel.attn_bwd_plain(q, k, v, want_o, want_lse, do)
+        want = by_slice(torch, attn_kernel.attn_bwd_plain, q, k, v, want_o, want_lse, do)
         rels = []
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            err = float((g.float() - w.float()).abs().max())
-            rels.append(err / float(w.float().abs().max()))
-            errs["attn_bwd"] = max(errs["attn_bwd"], err)
+            rels.append(row_err(g, w))
+            errs["attn_bwd"] = max(errs["attn_bwd"], float((g.float() - w.float()).abs().max()))
             if not rels[-1] <= ATTN_TOL:
-                fail(f"attn_bwd {shape}: {name} off by {rels[-1]} of its max (> {ATTN_TOL})")
-        log(f"kernels: attention {list(shape)}: o {o_rel:.3g} of max, lse {lse_err:.3g} abs, "
-            f"dq/dk/dv {', '.join(f'{r:.3g}' for r in rels)} of max (tol {ATTN_TOL}, lse "
-            f"{LSE_TOL}); backward bit-identical over two runs")
+                fail(f"attn_bwd {shape}: a row of {name} off by {rels[-1]} of its norm "
+                     f"(> {ATTN_TOL})")
+        log(f"kernels: attention {list(shape)}: worst row of o {o_err:.3g}, of dq/dk/dv "
+            f"{', '.join(f'{r:.3g}' for r in rels)} (of the row's norm, tol {ATTN_TOL}); "
+            f"lse {lse_err:.3g} abs (tol {LSE_TOL}); backward bit-identical over two runs")
+        if shape == ATTN_SHAPES[0]:
+            # The comparison has teeth: a kernel that skipped one tile fails it.
+            bad = skipped_tile(torch, q, k, v, want_o, want_lse, do)
+            caught = {name: row_err(b, w) for name, b, w in zip(
+                ("o", "dk", "dv"), bad, (want_o, want[1], want[2]))}
+            by_max = {name: float((b.float() - w.float()).abs().max() / w.float().abs().max())
+                      for name, b, w in zip(("o", "dk", "dv"), bad, (want_o, want[1], want[2]))}
+            log(f"kernels: attention {list(shape)}, one tile skipped: worst row "
+                f"{', '.join(f'{n} {e:.3g}' for n, e in caught.items())} (tol {ATTN_TOL}); "
+                f"as a share of each tensor's max |value| "
+                f"{', '.join(f'{n} {e:.3g}' for n, e in by_max.items())}")
+            if not min(caught.values()) > ATTN_TOL:
+                fail(f"the attention check passes a kernel that skips a tile: {caught}")
+            del bad
         del got, want, want_o, want_lse
 
     B, H, S, hd = ATTN_SHAPES[0]

@@ -288,20 +288,53 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         attn_kernel.attn_bwd(q, q, q, q, lse, q)
 
 
-# The flagship head width at a ragged S, width 64 over several tiles, and a
-# sequence shorter than one tile.
-CUDA_SHAPES = [(2, 4, 1000, 128), (1, 3, 384, 64), (1, 1, 77, 64)]
-
-
-def _cuda_inputs(shape, seed=0):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(shape, generator=gen, device="cuda") * shape[-1] ** -0.5
-    k, v, do = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+def _bf16_inputs(shape, device="cpu", seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(shape, generator=gen, device=device) * shape[-1] ** -0.5
+    k, v, do = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
     return [t.to(torch.bfloat16) for t in (q, k, v, do)]
 
 
-def _max_rel(got, want) -> float:
-    return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+def _rounded_like_the_kernels(q, k, v, o, lse, do):
+    """The plain math with the kernels' one departure from it: P, and dS,
+    rounded to bf16 where they feed a product (row sums from f32 P).  The
+    forward's o, then the backward's grads from the given (o, lse), as the
+    card check hands the plain forward's to both backwards."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    S = q.shape[-2]
+    s = (qf @ kf.mT).masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o_r = (e.bfloat16().float() @ vf / e.sum(-1, keepdim=True)).bfloat16()
+    p = torch.exp(s - lse[..., None])
+    ds = ((dof @ vf.mT - (o.float() * dof).sum(-1, keepdim=True)) * p).bfloat16().float()
+    grads = (ds @ kf, ds.mT @ qf, p.bfloat16().float().mT @ dof)
+    return (o_r, *(g.bfloat16() for g in grads))
+
+
+def test_card_check_passes_rounding_and_rejects_a_skipped_tile():
+    """The check chip_smoke.py holds the kernels to on the card (every row
+    within ATTN_TOL of its norm, attn_kernel.max_row_err), at the flagship
+    S and hd on two heads: the kernels' bf16 rounding passes it with room,
+    and the result of a kernel that skips one tile (chip_smoke.skipped_tile)
+    fails it by far.  Held to each tensor's max |value| instead, the skipped
+    tile would pass on dv."""
+    import chip_smoke
+
+    q, k, v, do = _bf16_inputs((1, 2, 1024, 128))
+    o, lse = attn_kernel.attn_fwd_plain(q, k, v)
+    want = (o, *attn_kernel.attn_bwd_plain(q, k, v, o, lse, do))
+    rounded = _rounded_like_the_kernels(q, k, v, o, lse, do)
+    for name, r, w in zip(("o", "dq", "dk", "dv"), rounded, want):
+        assert attn_kernel.max_row_err(r, w) <= chip_smoke.ATTN_TOL / 2, name
+    bad = chip_smoke.skipped_tile(torch, q, k, v, o, lse, do)
+    for name, b, w in zip(("o", "dk", "dv"), bad, (want[0], want[2], want[3])):
+        assert attn_kernel.max_row_err(b, w) > 10 * chip_smoke.ATTN_TOL, name
+    assert _rel_err(bad[2].float(), want[3].float()) < chip_smoke.ATTN_TOL
+
+
+# The flagship head width at a ragged S, width 64 over several tiles, a
+# sequence shorter than one tile, and the long8192 step's S.
+CUDA_SHAPES = [(2, 4, 1000, 128), (1, 3, 384, 64), (1, 1, 77, 64), (1, 2, 8192, 128)]
 
 
 @pytest.mark.cuda
@@ -309,12 +342,13 @@ def _max_rel(got, want) -> float:
 def test_kernels_match_plain_on_cuda(shape):
     """attn_fwd and attn_bwd against their plain versions on identical bf16
     inputs.  The kernels round P (and dS) to bf16 where they feed a product,
-    the plain versions keep f32: o and the grads within 2e-2 of their max;
-    lse, an f32 sum of exact bf16 products, within 1e-3 absolute."""
+    the plain versions keep f32: every row of o and the grads within 2e-2 of
+    that row's norm; lse, an f32 sum of exact bf16 products, within 1e-3
+    absolute."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the attention kernels run only on an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, do = _cuda_inputs(shape)
+    q, k, v, do = _bf16_inputs(shape, device="cuda")
     before = (attn_kernel.attn_fwd.launches, attn_kernel.attn_bwd.launches)
     o, lse = attn_kernel.attn_fwd(q, k, v)
     grads = attn_kernel.attn_bwd(q, k, v, o, lse, do)
@@ -322,13 +356,13 @@ def test_kernels_match_plain_on_cuda(shape):
     assert (attn_kernel.attn_fwd.launches, attn_kernel.attn_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     want_o, want_lse = attn_kernel.attn_fwd_plain(q, k, v)
-    assert _max_rel(o, want_o) <= 2e-2
+    assert attn_kernel.max_row_err(o, want_o) <= 2e-2
     assert float((lse - want_lse).abs().max()) <= 1e-3
     # The backward from the plain forward's (o, lse), so it is held alone.
     want = attn_kernel.attn_bwd_plain(q, k, v, want_o, want_lse, do)
     got = attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert _max_rel(g, w) <= 2e-2, (name, _max_rel(g, w))
+        assert attn_kernel.max_row_err(g, w) <= 2e-2, (name, attn_kernel.max_row_err(g, w))
     # Deterministic: no atomics, so a second run repeats bit for bit.
     again = attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -338,7 +372,7 @@ def test_kernels_match_plain_on_cuda(shape):
 def test_kernels_refuse_what_they_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the attention kernels run only on an NVIDIA GPU")
-    q, k, v, _ = _cuda_inputs((1, 2, 64, 64))
+    q, k, v, _ = _bf16_inputs((1, 2, 64, 64), device="cuda")
     with pytest.raises(TypeError):
         attn_kernel.attn_fwd(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="head_dim"):

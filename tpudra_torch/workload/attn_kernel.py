@@ -62,6 +62,20 @@ def attn_bwd_plain(q, k, v, o, lse, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def max_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far ``got`` is from ``want`` (same shape, any float dtype), row by
+    row along the last dim: the largest ``‖got − want‖ / ‖want‖`` over the
+    rows.  Attention's rows differ in scale by orders (o of the first query
+    is v[0], of the last an average of S values), so each row is held to its
+    own norm, not to the tensor's largest value.  A row whose norm is below
+    1e-3 of the tensor's RMS row norm (dq of the first query is 0 up to
+    rounding) is held to that floor instead."""
+    got, want = got.float(), want.float()
+    norms = want.norm(dim=-1)
+    floor = 1e-3 * float(norms.square().mean().sqrt())
+    return float(((got - want).norm(dim=-1) / norms.clamp_min(floor)).max())
+
+
 def _check(name: str, shape, tensors: dict) -> str:
     """The device type the tensors share; for CUDA, raise unless every
     tensor is what the kernels take."""
