@@ -10,14 +10,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   3. kernels: each kernel against its plain PyTorch version at the flagship
               train step's shapes (attention also at head width 64, a
               ragged sequence and the long step's seq 8192, row by row),
-              with the tolerance stated, and timed beside its plain
-              version, a PyTorch library yardstick and its bound
+              with the tolerance stated; planted faults (a skipped
+              attention tile, a dropped vocab tile or depth slice of the
+              CE head) must fail those checks; each kernel timed beside its
+              plain version, a PyTorch library yardstick and its bound
+              (attn_fwd also at seq 8192)
   4. small:   one train step's loss and grads on the card (kernels) against
               the CPU (plain versions) at a small size, with naive and with
               flash attention
   5. step:    the flagship train step at full width (472M params, batch 16,
               seq 1024), granted through a one-device ClaimEnv, twice:
-              a. fused CE head, fused AdamW, naive attention, remat "none";
+              a. fused CE head, fused AdamW, naive attention, remat "none",
+                 then profiled;
               b. the JAX bench's configuration (bench.py bench_tpu_step):
                  flash attention, remat "dots", chunked CE, tree AdamW, then
                  profiled;
@@ -103,8 +107,29 @@ def phase_build(build, libs):
         f"{time.perf_counter() - t0:.2f} s")
     for lib in paths:
         for line in build.build_log(lib).read_text().splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill")):
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "warning",
+                                       "setmaxnreg", "wgmma")):
                 log(f"build: ptxas ({lib.name}): {line.strip()}")
+
+
+def ce_err(got, want) -> float:
+    """Largest absolute difference of (lse, target logit) pairs."""
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def ce_dropped(ce_kernel, x, emb, tgt) -> dict:
+    """What kernels that drop work would return, from the plain math: (a) the
+    last 128 vocab columns never seen (their targets' logit 0, as the kernel
+    gives a target it never meets), (b) the last 64-deep slice of D never
+    multiplied.  {fault: (lse, target logit)}."""
+    V, D = emb.shape
+    keep = V - 128
+    lse_a, tlog_a = ce_kernel.ce_fwd_plain(x, emb[:keep], tgt.clamp(max=keep - 1))
+    tlog_a = tlog_a.masked_fill(tgt >= keep, 0.0)
+    x_b = x.clone()
+    x_b[:, D - 64:] = 0
+    return {"last 128 vocab columns dropped": (lse_a, tlog_a),
+            "one 64-deep slice of D dropped": ce_kernel.ce_fwd_plain(x_b, emb, tgt)}
 
 
 def phase_ce(torch, ce_kernel) -> dict:
@@ -115,25 +140,40 @@ def phase_ce(torch, ce_kernel) -> dict:
     emb = (0.02 * torch.randn(V, D, generator=gen, device="cuda")).to(torch.bfloat16)
     tgt = torch.randint(0, V, (N,), generator=gen, device="cuda", dtype=torch.int32)
 
-    lse, tlog = ce_kernel.ce_fwd(x, emb, tgt)
+    got = ce_kernel.ce_fwd(x, emb, tgt)
     torch.cuda.synchronize()
-    want_lse, want_tlog = ce_kernel.ce_fwd_plain(x, emb, tgt)
-    err = max(float((lse - want_lse).abs().max()), float((tlog - want_tlog).abs().max()))
+    want = ce_kernel.ce_fwd_plain(x, emb, tgt)
+    err = ce_err(got, want)
     if not (math.isfinite(err) and err <= CE_TOL):
         fail(f"ce_fwd differs from ce_fwd_plain by {err} (> {CE_TOL})")
-    del lse, tlog, want_lse, want_tlog
+    # The comparison has teeth: kernels that drop a vocab tile or a depth
+    # slice fail it.
+    caught = {name: ce_err(bad, want) for name, bad in ce_dropped(ce_kernel, x, emb, tgt).items()}
+    log(f"kernels: ce_fwd, planted faults: "
+        f"{', '.join(f'{n} {e:.3g}' for n, e in caught.items())} (tol {CE_TOL})")
+    if not min(caught.values()) > CE_TOL:
+        fail(f"the CE check passes a kernel that drops work: {caught}")
+    del got, want
 
-    def library():  # one product, then logsumexp and gather: the yardstick
+    def library():  # one f32-output product of the bf16 operands, then logsumexp and gather
+        logits = torch.mm(x, emb.t(), out_dtype=torch.float32)
+        return logits.logsumexp(-1), logits.gather(1, tgt.long()[:, None])
+
+    def library_bf16():  # the earlier yardstick: bf16 logits, then a second f32 copy
         logits = (x @ emb.t()).float()
         return logits.logsumexp(-1), logits.gather(1, tgt.long()[:, None])
 
     ms = time_ms(torch, lambda: ce_kernel.ce_fwd(x, emb, tgt))
     plain_ms = time_ms(torch, lambda: ce_kernel.ce_fwd_plain(x, emb, tgt), iters=5)
     library_ms = time_ms(torch, library, iters=5)
-    bound_ms, bound_by = bound(2.0 * N * D * V, PEAK_BF16_FLOPS, 2 * (N * D + V * D) + 4 * N + 8 * N)
+    library_bf16_ms = time_ms(torch, library_bf16, iters=5)
+    flops = 2.0 * N * D * V
+    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, 2 * (N * D + V * D) + 4 * N + 8 * N)
     log(f"kernels: ce_fwd N={N} D={D} V={V} max_abs_err={err:.3g} (tol {CE_TOL}) "
         f"ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} "
-        f"bound_ms={bound_ms:.3f} ({bound_by}); {2.0 * N * D * V / ms / 1e9:.1f} TFLOP/s")
+        f"(torch.mm out_dtype=float32 + logsumexp + gather; with bf16 logits as before: "
+        f"{library_bf16_ms:.3f}) bound_ms={bound_ms:.3f} ({bound_by}); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms * 100:.1f}% of bound")
     return {
         "name": "ce_fwd", "route": "cuda", "source": "tpudra_torch/workload/csrc/ce_fwd.cu",
         "replaces": "tpudra/workload/ce_kernel.py:34 (_fwd_kernel, launched at :90 _fwd_pallas)",
@@ -234,7 +274,8 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
     (row by row, attn_kernel.max_row_err), a check that the comparison
     rejects a kernel that skips one tile, then timed at the flagship shape
     beside the plain versions, PyTorch's flash SDPA (forward; backward alone
-    on a kept graph) and the bounds."""
+    on a kept graph) and the bounds; the forward also at the long step's
+    shape."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -318,7 +359,7 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, n_tensors * tensor_bytes + 4.0 * B * H * S)
         log(f"kernels: {name} {[B, H, S, hd]} ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={library_ms:.3f} (flash SDPA) bound_ms={bound_ms:.3f} ({bound_by}); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms * 100:.1f}% of bound")
         out.append({
             "name": name, "route": "cuda", "source": f"tpudra_torch/workload/csrc/{name}.cu",
             "replaces": "tpudra/workload/model.py:288 (_layer's splash call, built at :272-287; "
@@ -327,6 +368,24 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
         })
+    del q, k, v, do, o, lse
+
+    # The forward at the long step's shape, beside its bound and flash SDPA
+    # (the plain version's f32 scores would take ~30 GB here).
+    B, H, S, hd = ATTN_SHAPES[-1]
+    q = (torch.randn(B, H, S, hd, generator=gen, device="cuda") * hd ** -0.5).bfloat16()
+    k, v = (torch.randn(B, H, S, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    ms = time_ms(torch, lambda: attn_kernel.attn_fwd(q, k, v), iters=5)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=1.0), iters=5)
+    flops = 4.0 * hd * B * H * S * (S + 1) / 2
+    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, 4 * 2.0 * B * H * S * hd + 4.0 * B * H * S)
+    log(f"kernels: attn_fwd {[B, H, S, hd]} ms={ms:.3f} library_ms={library_ms:.3f} (flash SDPA) "
+        f"bound_ms={bound_ms:.3f} ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / ms * 100:.1f}% of bound")
+    out[0].update(long_shape=[B, H, S, hd], long_ms=ms, long_bound_ms=bound_ms,
+                  long_library_ms=library_ms)
     return out
 
 
@@ -438,7 +497,7 @@ def expect_attention_launches(label, cfg, launches, steps):
 CATEGORIES = (
     ("attention kernels (attn_fwd, attn_bwd)",
      ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")),
-    ("ce_fwd kernel", ("ce_fwd_kernel",)),
+    ("ce_fwd kernels (chunks, combine)", ("ce_fwd_kernel", "ce_combine_kernel")),
     ("adamw kernel", ("adamw_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
     ("softmax", ("softmax",)),
@@ -519,7 +578,7 @@ def main() -> int:
     drive = lambda *a, **kw: drive_step(torch, model, envspec, convert, counters, *a, **kw)  # noqa: E731
     cfg = model.ModelConfig(**FLAGSHIP, ce_impl="fused", opt_impl="fused", attention="naive",
                             remat="none")
-    fused = drive("step (fused CE, fused AdamW, naive)", cfg, BATCH, TIMED_STEPS)
+    fused = drive("step (fused CE, fused AdamW, naive)", cfg, BATCH, TIMED_STEPS, profile=True)
     for name in ("ce_fwd", "adamw_step"):
         if fused[name] <= 0:
             fail(f"the fused flagship step never launched the {name} kernel")

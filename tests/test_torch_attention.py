@@ -333,8 +333,10 @@ def test_card_check_passes_rounding_and_rejects_a_skipped_tile():
 
 
 # The flagship head width at a ragged S, width 64 over several tiles, a
-# sequence shorter than one tile, and the long8192 step's S.
-CUDA_SHAPES = [(2, 4, 1000, 128), (1, 3, 384, 64), (1, 1, 77, 64), (1, 2, 8192, 128)]
+# sequence shorter than one tile, the long8192 step's S, one query, and one
+# query past a whole tile.
+CUDA_SHAPES = [(2, 4, 1000, 128), (1, 3, 384, 64), (1, 1, 77, 64), (1, 2, 8192, 128),
+               (1, 2, 1, 128), (1, 2, 129, 128)]
 
 
 @pytest.mark.cuda
@@ -362,6 +364,12 @@ def test_kernels_match_plain_on_cuda(shape):
     want = attn_kernel.attn_bwd_plain(q, k, v, want_o, want_lse, do)
     got = attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not w.float().any():
+            # dq of a single query is 0 (its one probability is 1, so
+            # ds = do·v − rowsum(o·do) = 0): no row norm to hold it to, only
+            # the rounding of that difference.
+            assert float(g.float().abs().max()) <= 1e-4, name
+            continue
         assert attn_kernel.max_row_err(g, w) <= 2e-2, (name, attn_kernel.max_row_err(g, w))
     # Deterministic: no atomics, so a second run repeats bit for bit.
     again = attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do)

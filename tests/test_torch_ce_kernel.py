@@ -94,19 +94,67 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         ce_kernel.ce_fwd(x, e, t)
 
 
+def _summed_like_the_kernel(x, emb, tgt):
+    """The plain math in the kernel's order: f32 logits summed over 64-deep
+    slices of D, a max and exp2 sum per 4096-column chunk, the chunks then
+    combined in order."""
+    xf, ef = x.float(), emb.float()
+    logits = sum(xf[:, k:k + 64] @ ef[:, k:k + 64].T for k in range(0, x.shape[1], 64))
+    chunks = logits.split(4096, dim=1)
+    m = torch.stack([c.amax(1) for c in chunks])
+    s = torch.stack([torch.exp2((c - mc[:, None]) * 1.4426950408889634).sum(1)
+                     for c, mc in zip(chunks, m)])
+    top = m.amax(0)
+    lse = top + torch.log((s * torch.exp(m - top)).sum(0))
+    return lse, logits.gather(1, tgt.long()[:, None])[:, 0]
+
+
+def test_card_check_passes_rounding_and_rejects_dropped_work():
+    """The check chip_smoke.py holds ce_fwd to on the card (lse and target
+    logit within CE_TOL absolute of ce_fwd_plain), at the flagship D and V
+    and the phase's input scales: the plain math summed in the kernel's
+    order passes it with room, and the results of kernels that drop the
+    last 128 vocab columns or one 64-deep slice of D (chip_smoke.ce_dropped)
+    fail it, the first on every row's lse alone."""
+    import chip_smoke
+
+    N, D, V = 256, 2048, 32768
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(N, D, generator=gen).to(torch.bfloat16)
+    emb = (0.02 * torch.randn(V, D, generator=gen)).to(torch.bfloat16)
+    tgt = torch.randint(0, V, (N,), generator=gen, dtype=torch.int32)
+    want = ce_kernel.ce_fwd_plain(x, emb, tgt)
+    assert chip_smoke.ce_err(_summed_like_the_kernel(x, emb, tgt), want) <= chip_smoke.CE_TOL / 10
+    bad = chip_smoke.ce_dropped(ce_kernel, x, emb, tgt)
+    for name, got in bad.items():
+        assert chip_smoke.ce_err(got, want) > chip_smoke.CE_TOL, name
+    lse_shift = (bad["last 128 vocab columns dropped"][0] - want[0]).abs()
+    assert float(lse_shift.min()) > chip_smoke.CE_TOL
+
+
+# (N, V, D, targets in the last vocab tile): ragged N, V and D in one; N not
+# a multiple of the 128-row tile with V below one 256-column tile; V not a
+# multiple of the tile with a ragged last depth box (D = 264); several
+# 4096-column chunks with a partial last one; and 17 row tiles (a partial
+# last launch group of 16) at one depth slice.
+CUDA_SIZES = [(1000, 5000, 264, False), (300, 100, 128, False), (129, 1000, 264, True),
+              (1000, 9000, 256, True), (2100, 8192, 64, False)]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_cuda():
+@pytest.mark.parametrize("N,V,Dk,last_tile", CUDA_SIZES)
+def test_kernel_matches_plain_on_cuda(N, V, Dk, last_tile):
     """The CUDA kernel against ce_fwd_plain on identical bf16 inputs, with
-    ragged N and V.  Both accumulate in f32; only the order of the sums
+    ragged N, V and D.  Both accumulate in f32; only the order of the sums
     differs, hence 2e-3 absolute on values of order 10."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the ce_fwd kernel runs only on an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 product in full f32
     gen = torch.Generator(device="cuda").manual_seed(0)
-    N, V, Dk = 1000, 5000, 264
     x = torch.randn(N, Dk, generator=gen, device="cuda").to(torch.bfloat16)
     emb = (0.1 * torch.randn(V, Dk, generator=gen, device="cuda")).to(torch.bfloat16)
-    tgt = torch.randint(0, V, (N,), generator=gen, device="cuda", dtype=torch.int32)
+    low = (V - 1) // 256 * 256 if last_tile else 0
+    tgt = torch.randint(low, V, (N,), generator=gen, device="cuda", dtype=torch.int32)
     before = ce_kernel.ce_fwd.launches
     lse, tlog = ce_kernel.ce_fwd(x, emb, tgt)
     torch.cuda.synchronize()

@@ -1,8 +1,9 @@
 """Fused cross-entropy head: the counterpart of ``tpudra/workload/ce_kernel.py``.
 
 Forward: per row of x, ``logsumexp(x @ E^T)`` and the target logit, computed
-by the hand-written CUDA kernel ``csrc/ce_fwd.cu`` without writing the
-[N, V] logits to device memory.  Backward: the port of ``_fused_bwd``,
+by the hand-written CUDA kernels of ``csrc/ce_fwd.cu`` (per vocab chunk, then
+a combine over the chunks) without writing the [N, V] logits to device
+memory.  Backward: the port of ``_fused_bwd``,
 recomputing the logits in BWD_CHUNK-row chunks (plain matrix products, as
 the JAX package leaves them to XLA), so the softmax intermediate exists only
 at [chunk, V].
@@ -78,14 +79,17 @@ def ce_fwd(x: torch.Tensor, emb: torch.Tensor, targets: torch.Tensor):
             raise ValueError(f"ce_fwd kernel needs a contiguous, 16-byte aligned {name}")
     if not 0 < max(N, V) < 2**31:
         raise ValueError(f"ce_fwd kernel: N={N}, V={V} out of range")
+    lib = _library()
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     tlog = torch.empty(N, dtype=torch.float32, device=x.device)
-    fn = _kernel_fn()
+    # Per vocab chunk and row: partial max, sum and target logit.
+    scratch = torch.empty(lib.tpudra_ce_fwd_scratch_floats(N, V), dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
+        err = lib.tpudra_ce_fwd(
             x.data_ptr(), emb.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-            tlog.data_ptr(), N, V, D, stream,
+            tlog.data_ptr(), scratch.data_ptr(), N, V, D, stream,
         )
     if err:
         raise RuntimeError(f"ce_fwd kernel launch failed: CUDA error {err}")
@@ -96,13 +100,15 @@ def ce_fwd(x: torch.Tensor, emb: torch.Tensor, targets: torch.Tensor):
 ce_fwd.launches = 0  # kernel launches, for showing a run went through it
 
 
-def _kernel_fn():
+def _library():
     from tpudra_torch.workload import _build
 
-    fn = _build.load(*_LIB).tpudra_ce_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load(*_LIB)
+    lib.tpudra_ce_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.tpudra_ce_fwd.restype = ctypes.c_int
+    lib.tpudra_ce_fwd_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpudra_ce_fwd_scratch_floats.restype = ctypes.c_longlong
+    return lib
 
 
 class FusedCE(torch.autograd.Function):
