@@ -14,7 +14,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               attention tile, a dropped vocab tile or depth slice of the
               CE head) must fail those checks; each kernel timed beside its
               plain version, a PyTorch library yardstick and its bound
-              (attn_fwd also at seq 8192)
+              (attn_fwd and attn_bwd also at seq 8192)
   4. small:   one train step's loss and grads on the card (kernels) against
               the CPU (plain versions) at a small size, with naive and with
               flash attention
@@ -251,22 +251,32 @@ def by_slice(torch, fn, *tensors):
 
 def skipped_tile(torch, q, k, v, o, lse, do):
     """What kernels that skip one tile would return, from the plain math:
-    the causal pairs of the last 32 queries (a q tile of the dk/dv kernel)
-    and the 64 keys just below the diagonal tile dropped.  Gives the
-    forward's o and the backward's dk, dv (from the true o and lse)."""
+    the causal pairs of the last 64 queries and the 64 keys just below the
+    diagonal dropped, one [64 x 64] tile of both backward kernels (a q tile
+    of a dk/dv warpgroup, a kv tile of a dq warpgroup).  Gives the forward's
+    o and the backward's dq, dk, dv (from the true o and lse)."""
     S = q.shape[-2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     drop = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
-    drop[S - 32:, S - 128:S - 64] = True
+    drop[S - 64:, S - 128:S - 64] = True
     s = s.masked_fill(drop, float("-inf"))
     bad_o = torch.matmul(torch.softmax(s, dim=-1), v.float())
     p = torch.exp(s - lse[..., None])
     dof = do.float()
     ds = (torch.matmul(dof, v.float().transpose(-1, -2))
           - (o.float() * dof).sum(dim=-1, keepdim=True)) * p
+    bad_dq = torch.matmul(ds, k.float())
     bad_dk = torch.matmul(ds.transpose(-1, -2), q.float())
     bad_dv = torch.matmul(p.transpose(-1, -2), dof)
-    return bad_o.bfloat16(), bad_dk.bfloat16(), bad_dv.bfloat16()
+    return tuple(t.bfloat16() for t in (bad_o, bad_dq, bad_dk, bad_dv))
+
+
+def seven_products(flops: float, products: int) -> str:
+    """For the backward: the bound of the products its two kernels do (the
+    dq kernel computes q·kᵀ and do·vᵀ again, 7 against the 5 needed)."""
+    if products != 5:
+        return ""
+    return f"; bound of the 7 products done {flops * 7 / 5 / PEAK_BF16_FLOPS * 1e3:.3f} ms"
 
 
 def phase_attention(torch, attn_kernel) -> list[dict]:
@@ -274,8 +284,7 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
     (row by row, attn_kernel.max_row_err), a check that the comparison
     rejects a kernel that skips one tile, then timed at the flagship shape
     beside the plain versions, PyTorch's flash SDPA (forward; backward alone
-    on a kept graph) and the bounds; the forward also at the long step's
-    shape."""
+    on a kept graph) and the bounds; both also at the long step's shape."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -317,10 +326,10 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
         if shape == ATTN_SHAPES[0]:
             # The comparison has teeth: a kernel that skipped one tile fails it.
             bad = skipped_tile(torch, q, k, v, want_o, want_lse, do)
-            caught = {name: row_err(b, w) for name, b, w in zip(
-                ("o", "dk", "dv"), bad, (want_o, want[1], want[2]))}
+            names = ("o", "dq", "dk", "dv")
+            caught = {name: row_err(b, w) for name, b, w in zip(names, bad, (want_o, *want))}
             by_max = {name: float((b.float() - w.float()).abs().max() / w.float().abs().max())
-                      for name, b, w in zip(("o", "dk", "dv"), bad, (want_o, want[1], want[2]))}
+                      for name, b, w in zip(names, bad, (want_o, *want))}
             log(f"kernels: attention {list(shape)}, one tile skipped: worst row "
                 f"{', '.join(f'{n} {e:.3g}' for n, e in caught.items())} (tol {ATTN_TOL}); "
                 f"as a share of each tensor's max |value| "
@@ -359,7 +368,8 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, n_tensors * tensor_bytes + 4.0 * B * H * S)
         log(f"kernels: {name} {[B, H, S, hd]} ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={library_ms:.3f} (flash SDPA) bound_ms={bound_ms:.3f} ({bound_by}); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms * 100:.1f}% of bound")
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms * 100:.1f}% of bound"
+            + seven_products(flops, products))
         out.append({
             "name": name, "route": "cuda", "source": f"tpudra_torch/workload/csrc/{name}.cu",
             "replaces": "tpudra/workload/model.py:288 (_layer's splash call, built at :272-287; "
@@ -370,22 +380,36 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
         })
     del q, k, v, do, o, lse
 
-    # The forward at the long step's shape, beside its bound and flash SDPA
-    # (the plain version's f32 scores would take ~30 GB here).
+    # Both kernels at the long step's shape, beside their bounds and flash
+    # SDPA (the plain versions' f32 scores would take ~30 GB here).
     B, H, S, hd = ATTN_SHAPES[-1]
     q = (torch.randn(B, H, S, hd, generator=gen, device="cuda") * hd ** -0.5).bfloat16()
-    k, v = (torch.randn(B, H, S, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
-    ms = time_ms(torch, lambda: attn_kernel.attn_fwd(q, k, v), iters=5)
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=1.0), iters=5)
-    flops = 4.0 * hd * B * H * S * (S + 1) / 2
-    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, 4 * 2.0 * B * H * S * hd + 4.0 * B * H * S)
-    log(f"kernels: attn_fwd {[B, H, S, hd]} ms={ms:.3f} library_ms={library_ms:.3f} (flash SDPA) "
-        f"bound_ms={bound_ms:.3f} ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s, "
-        f"{bound_ms / ms * 100:.1f}% of bound")
-    out[0].update(long_shape=[B, H, S, hd], long_ms=ms, long_bound_ms=bound_ms,
-                  long_library_ms=library_ms)
+    k, v, do = (torch.randn(B, H, S, hd, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    o, lse = attn_kernel.attn_fwd(q, k, v)
+    pairs = B * H * S * (S + 1) / 2
+    tensor_bytes = 2.0 * B * H * S * hd
+    for entry, kernel, products, n_tensors in (
+            (out[0], lambda: attn_kernel.attn_fwd(q, k, v), 2, 4),
+            (out[1], lambda: attn_kernel.attn_bwd(q, k, v, o, lse, do), 5, 8)):
+        ms = time_ms(torch, kernel, iters=5)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            if products == 2:
+                library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=1.0), iters=5)
+            else:
+                qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+                lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=1.0)
+                library_ms = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_o, (qg, kg, vg), do, retain_graph=True), iters=5)
+                del lib_o, qg, kg, vg
+        flops = 2.0 * hd * pairs * products
+        bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, n_tensors * tensor_bytes + 4.0 * B * H * S)
+        log(f"kernels: {entry['name']} {[B, H, S, hd]} ms={ms:.3f} library_ms={library_ms:.3f} "
+            f"(flash SDPA) bound_ms={bound_ms:.3f} ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound_ms / ms * 100:.1f}% of bound" + seven_products(flops, products))
+        entry.update(long_shape=[B, H, S, hd], long_ms=ms, long_bound_ms=bound_ms,
+                     long_library_ms=library_ms)
+    del q, k, v, do, o, lse
     return out
 
 
@@ -529,7 +553,10 @@ def phase_profile(torch, label, run_step, step_ms: float):
         f"(busy share {total / step_ms * 100:.1f}%)")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         log(f"profile ({label}): {cat}: {ms:.2f} ms ({ms / total * 100:.1f}%)")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:12]:
+    attention = CATEGORIES[0][1]
+    top = sorted(kernels, key=lambda e: -e.device_time_total)
+    # The 12 longest, and every attention kernel (each of its own name).
+    for e in top[:12] + [e for e in top[12:] if any(k in e.key for k in attention)]:
         log(f"profile ({label}): kernel {e.device_time_total / 1e3:8.2f} ms x{e.count:<4d} "
             f"{e.key[:90]}")
 

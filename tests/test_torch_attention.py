@@ -316,8 +316,8 @@ def test_card_check_passes_rounding_and_rejects_a_skipped_tile():
     within ATTN_TOL of its norm, attn_kernel.max_row_err), at the flagship
     S and hd on two heads: the kernels' bf16 rounding passes it with room,
     and the result of a kernel that skips one tile (chip_smoke.skipped_tile)
-    fails it by far.  Held to each tensor's max |value| instead, the skipped
-    tile would pass on dv."""
+    fails it by far, on o, dq, dk and dv.  Held to each tensor's max |value|
+    instead, the skipped tile would come within 2x of the tolerance on dv."""
     import chip_smoke
 
     q, k, v, do = _bf16_inputs((1, 2, 1024, 128))
@@ -327,16 +327,19 @@ def test_card_check_passes_rounding_and_rejects_a_skipped_tile():
     for name, r, w in zip(("o", "dq", "dk", "dv"), rounded, want):
         assert attn_kernel.max_row_err(r, w) <= chip_smoke.ATTN_TOL / 2, name
     bad = chip_smoke.skipped_tile(torch, q, k, v, o, lse, do)
-    for name, b, w in zip(("o", "dk", "dv"), bad, (want[0], want[2], want[3])):
+    for name, b, w in zip(("o", "dq", "dk", "dv"), bad, want):
         assert attn_kernel.max_row_err(b, w) > 10 * chip_smoke.ATTN_TOL, name
-    assert _rel_err(bad[2].float(), want[3].float()) < chip_smoke.ATTN_TOL
+    assert _rel_err(bad[3].float(), want[3].float()) < 2 * chip_smoke.ATTN_TOL
 
 
 # The flagship head width at a ragged S, width 64 over several tiles, a
 # sequence shorter than one tile, the long8192 step's S, one query, and one
-# query past a whole tile.
+# query past a whole tile; then, at the backward's tile edges with three
+# heads or more (a tile read past S would meet the next head's rows): S of
+# one 64-row tile, one row past three, one row short of two 128-row tiles.
 CUDA_SHAPES = [(2, 4, 1000, 128), (1, 3, 384, 64), (1, 1, 77, 64), (1, 2, 8192, 128),
-               (1, 2, 1, 128), (1, 2, 129, 128)]
+               (1, 2, 1, 128), (1, 2, 129, 128), (3, 2, 64, 128), (3, 2, 193, 64),
+               (2, 3, 255, 128)]
 
 
 @pytest.mark.cuda

@@ -5,9 +5,12 @@ backward, q pre-scaled by the caller).
 Forward: per (batch, head), ``o = softmax(q·kᵀ)·v`` under the causal mask and
 the row logsumexp ``lse``, by the hand-written CUDA kernel
 ``csrc/attn_fwd.cu``; the [S, S] scores never reach device memory.  Backward:
-``csrc/attn_bwd.cu``, two kernels that recompute the probabilities from the
-saved ``lse`` (one for dq, which also writes ``di = rowsum(o·do)``, then one
-for dk and dv).  No atomics: a run on the card repeats bit for bit.
+``csrc/attn_bwd.cu``, two Hopper kernels (TMA, mbarrier rings, wgmma) that
+recompute the probabilities from the saved ``lse``: one for dq, which also
+writes ``di = rowsum(o·do)``, then one for dk and dv.  They do 7 products
+where 5 would do (dq's kernel computes q·kᵀ and do·vᵀ again); the bound of
+the 5 is 0.174 ms at the flagship [16, 16, 1024, 128] on an H100.  No
+atomics: a run on the card repeats bit for bit.
 
 The kernels apply no scale: the caller scales q, in its own dtype, as the
 JAX model does before it calls splash.  ``attn_fwd`` and ``attn_bwd`` launch

@@ -1,21 +1,27 @@
-// Hopper (sm_90a) building blocks shared by ce_fwd.cu and attn_fwd.cu: TMA
-// tensor maps and loads, mbarriers, the wgmma shared-memory descriptor, the
-// wgmma products (bf16 x bf16 -> f32) and the row reductions over their
-// accumulators.
+// Hopper (sm_90a) building blocks shared by ce_fwd.cu, attn_fwd.cu and
+// attn_bwd.cu: TMA tensor maps and loads, mbarriers (also completed by
+// cp.async copies), the wgmma shared-memory descriptor, the wgmma products
+// (bf16 x bf16 -> f32) and the row reductions over their accumulators.
 //
 // Layouts these helpers assume.
 //   - Every operand tile in shared memory is made of TMA boxes 64 bf16
 //     (128 bytes) wide, loaded with CU_TENSOR_MAP_SWIZZLE_128B, each box
 //     1024-byte aligned.  Rows of a box are 128 bytes apart, so eight rows
 //     (one swizzle atom) are 1024 bytes.
-//   - K-major operand (the depth contiguous: x and E rows, q and k rows):
-//     descriptor SBO = 1024 bytes (next 8 rows), LBO unused; a k16 step
-//     inside the 128-byte row adds 32 bytes to the start address.
-//   - MN-major operand (the output columns contiguous: v rows, where the
-//     depth of p·v runs down the rows): SBO = 1024 bytes (next 8 depth rows),
-//     LBO = the distance to the box holding the next 64 columns; a k16 step
-//     adds 16 rows = 2048 bytes.
-//   - Accumulator of m64nN (f32, 128 threads): warp w of the warpgroup holds
+//   - Boxes are 128 or 64 rows tall (16 or 8 KB); a tile of hd 128 columns
+//     is two boxes, the second holding columns 64..127.
+//   - K-major operand (the depth contiguous: x and E rows, q and k rows as
+//     the operands of q·kᵀ, k·qᵀ, do·vᵀ, v·doᵀ): descriptor SBO = 1024 bytes
+//     (next 8 rows), LBO unused; a k16 step inside the 128-byte row adds 32
+//     bytes to the start address, and every fourth step moves to the next
+//     box.  An A operand of 64 rows may start 64 rows into a 128-row box.
+//   - MN-major operand (the output columns contiguous: v in p·v, do in
+//     pᵀ·do, q in dsᵀ·q, k in ds·k, where the depth runs down the rows):
+//     SBO = 1024 bytes (next 8 depth rows), LBO = the distance to the box
+//     holding the next 64 columns (the box size); a k16 step adds 16 rows =
+//     2048 bytes.
+//   - Accumulator of m64nN (f32, 128 threads; N/2 values a thread, N = 64,
+//     128 or 256): warp w of the warpgroup holds
 //     rows 16w..16w+15; lane = 4g + t holds, for each 8-column block j,
 //     d[4j+0..1] = (row g, cols 8j+2t, 8j+2t+1) and d[4j+2..3] = (row g+8,
 //     same cols).  A row's values sit in the four lanes of a quad.
@@ -112,6 +118,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---- cp.async into an mbarrier's phase ----------------------------------------
+
+// Copies 4 bytes from global to shared memory, or writes 4 zero bytes when
+// `valid` is false (the source is then not read).  For data whose rows are
+// not 16-byte aligned, which TMA cannot load.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed (.noinc: the arrival counts toward the barrier's expected count,
+// which must include it).  Waiters on the phase then see the copied data.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // ---- named barriers ----------------------------------------------------------
 
 // Named barriers (id 0 is __syncthreads'): `bar_sync` waits until `count`
@@ -167,6 +192,22 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d[32] (+)= A·Bᵀ, m64n64k16, A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // d[64] (+)= A·Bᵀ, m64n128k16, A and B from shared memory (K-major).
