@@ -29,6 +29,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   6. long:    bench.py's long8192: the same width at seq 8192, batch 2,
               remat "dots", flash attention; 1 warm-up and 2 timed steps,
               then profiled
+  7. moe_small: one small Switch-MoE step's loss and grads on the card
+              against the CPU (f32, naive attention), and its loss in bf16
+              with the flash kernels
+  8. moe:     bench.py bench_moe's configuration at full width (605M params,
+              8 experts, batch 8, seq 1024, splash, remat "dots", chunked CE,
+              tree AdamW); 1 warm-up and 3 timed steps, then profiled;
+              bench_moe's accounting recomputed here, plus the FLOPs of the
+              dispatch and combine products it leaves out
+  9. distributed: a child process granted the card through the env
+              (ClaimEnv.apply_cuda_env, mesh_from_devices over a one-rank
+              NCCL group): verify_collectives and the five benches on the
+              card (no GB/s is published from one rank), then the sharded
+              train step on a (1, 1, 1) ("dp", "sp", "tp") mesh against the
+              single-device step, at the MoE configuration and dense at the
+              flagship width with 2 layers
 Each step phase sets every kernel's launch count to 0 just before it and
 reads the counts just after.
 
@@ -53,6 +68,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 LONG = dict(FLAGSHIP, max_seq=8192)  # bench.py long8192
+# bench.py bench_moe: half the flagship's width, 8 experts, batch 8.
+MOE = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8, d_ff=4096, max_seq=1024,
+           num_experts=8)
+MOE_BATCH = 8
 LONG_BATCH = 2
 LONG_TIMED_STEPS = 2
 CE_TOL = 2e-3  # lse/target logit, f32 sums of bf16 products in another order
@@ -65,10 +84,21 @@ ADAMW_P_TOL = 1e-6  # params; moments must be bit-identical
 # misses it by 20x or more (phase_attention checks that too).
 ATTN_TOL = 2e-2
 LSE_TOL = 1e-3
-# [B, H, S, hd]: the flagship attention, head width 64 at the same d_model,
-# a ragged sequence, and the long8192 step's attention.
-ATTN_SHAPES = ((BATCH, 16, 1024, 128), (BATCH, 32, 1024, 64), (2, 4, 1000, 128),
-               (LONG_BATCH, 16, 8192, 128))
+
+
+def attn_shape(batch, n_heads, max_seq, d_model, **_) -> tuple:
+    """The [B, H, S, hd] a step of this configuration hands the flash kernels."""
+    return (batch, n_heads, max_seq, d_model // n_heads)
+
+
+# Every step this script drives at full width, with its batch; its attention
+# shape is held against the plain versions (drive_step refuses a flash step
+# whose shape is not in ATTN_SHAPES).
+STEPS = ((FLAGSHIP, BATCH), (LONG, LONG_BATCH), (MOE, MOE_BATCH))
+FLAGSHIP_ATTN, LONG_ATTN, MOE_ATTN = (attn_shape(b, **c) for c, b in STEPS)
+# [B, H, S, hd]: the steps' shapes, head width 64 at the flagship d_model,
+# and a ragged sequence.
+ATTN_SHAPES = (FLAGSHIP_ATTN, (BATCH, 32, 1024, 64), (2, 4, 1000, 128), MOE_ATTN, LONG_ATTN)
 
 
 def fail(msg: str) -> None:
@@ -323,7 +353,7 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
         log(f"kernels: attention {list(shape)}: worst row of o {o_err:.3g}, of dq/dk/dv "
             f"{', '.join(f'{r:.3g}' for r in rels)} (of the row's norm, tol {ATTN_TOL}); "
             f"lse {lse_err:.3g} abs (tol {LSE_TOL}); backward bit-identical over two runs")
-        if shape == ATTN_SHAPES[0]:
+        if shape == FLAGSHIP_ATTN:
             # The comparison has teeth: a kernel that skipped one tile fails it.
             bad = skipped_tile(torch, q, k, v, want_o, want_lse, do)
             names = ("o", "dq", "dk", "dv")
@@ -339,7 +369,7 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
             del bad
         del got, want, want_o, want_lse
 
-    B, H, S, hd = ATTN_SHAPES[0]
+    B, H, S, hd = FLAGSHIP_ATTN
     gen = torch.Generator(device="cuda").manual_seed(5)
     q = (torch.randn(B, H, S, hd, generator=gen, device="cuda") * hd ** -0.5).bfloat16()
     k, v, do = (torch.randn(B, H, S, hd, generator=gen, device="cuda").bfloat16() for _ in range(3))
@@ -382,7 +412,7 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
 
     # Both kernels at the long step's shape, beside their bounds and flash
     # SDPA (the plain versions' f32 scores would take ~30 GB here).
-    B, H, S, hd = ATTN_SHAPES[-1]
+    B, H, S, hd = LONG_ATTN
     q = (torch.randn(B, H, S, hd, generator=gen, device="cuda") * hd ** -0.5).bfloat16()
     k, v, do = (torch.randn(B, H, S, hd, generator=gen, device="cuda").bfloat16() for _ in range(3))
     o, lse = attn_kernel.attn_fwd(q, k, v)
@@ -455,7 +485,14 @@ def phase_small(torch, model, convert, attn_kernel):
 def drive_step(torch, model, envspec, convert, counters, label, cfg, batch, timed, profile=False):
     """Train ``cfg`` on the one granted device: 1 warm-up and ``timed`` timed
     steps, every kernel's launch count set to 0 just before and read just
-    after.  Checks the losses; returns {kernel name: launches}."""
+    after.  Checks the losses; returns ({kernel name: launches}, step
+    seconds, params).  A dense step's MFU is logged with bench.py's count;
+    an MoE step's is its caller's (moe_accounting)."""
+    if cfg.use_flash_attention(cfg.max_seq, "cuda"):
+        shape = attn_shape(batch, cfg.n_heads, cfg.max_seq, cfg.d_model)
+        if shape not in ATTN_SHAPES:
+            fail(f"{label}: attention shape {shape} is not held against the plain versions "
+                 f"(ATTN_SHAPES)")
     grant = envspec.ClaimEnv.from_environ({"TPU_VISIBLE_DEVICES": "0", "TPUDRA_CHIP_COORDS": "0,0,0"})
     if len(grant.visible_devices) != 1 or grant.mesh_bounds != (1, 1, 1):
         fail(f"one-device grant parsed as {grant.visible_devices} {grant.mesh_bounds}")
@@ -494,16 +531,17 @@ def drive_step(torch, model, envspec, convert, counters, label, cfg, batch, time
              f"{math.log(cfg.vocab):.3f}")
     tokens_per_step = batch * (cfg.max_seq - 1)
     flops = tokens_per_step * (6 * n_params + 12 * cfg.n_layers * cfg.max_seq * cfg.d_model)
+    mfu = "" if cfg.num_experts else (
+        f" model_tflops_per_s={flops / step_s / 1e12:.1f} mfu_pct="
+        f"{flops / step_s / PEAK_BF16_FLOPS * 100:.1f} (of {PEAK_BF16_FLOPS / 1e12:.0f})")
     log(f"{label}: {n_params} params, batch {batch}, seq {cfg.max_seq}, attention "
         f"{cfg.attention}, remat {cfg.remat}, ce {cfg.ce_impl}, opt {cfg.opt_impl}; losses {losses}")
     log(f"{label}: warm-up step {warm_s * 1e3:.1f} ms; step_ms={step_s * 1e3:.2f} "
-        f"tokens_per_s={tokens_per_step / step_s:.0f} model_tflops_per_s={flops / step_s / 1e12:.1f} "
-        f"mfu_pct={flops / step_s / PEAK_BF16_FLOPS * 100:.1f} (of {PEAK_BF16_FLOPS / 1e12:.0f}) "
-        f"max_memory_allocated_gb={peak_gb:.2f}")
+        f"tokens_per_s={tokens_per_step / step_s:.0f}{mfu} max_memory_allocated_gb={peak_gb:.2f}")
     log(f"{label}: launches over {1 + timed} steps: {launches}")
     if profile:
         phase_profile(torch, label, lambda: step(params, state, tokens), step_s * 1e3)
-    return launches
+    return launches, step_s, n_params
 
 
 def expect_attention_launches(label, cfg, launches, steps):
@@ -515,6 +553,204 @@ def expect_attention_launches(label, cfg, launches, steps):
     got = {name: launches[name] for name in want}
     if got != want:
         fail(f"{label}: attention kernel launches {got}, remat {cfg.remat!r} implies {want}")
+
+
+def phase_moe_small(torch, model, convert, attn_kernel):
+    """One small Switch-MoE step's loss and grads on the card against the
+    CPU path (held against the JAX package by the tests): in f32 with naive
+    attention, loss within 1e-4 and each grad leaf within 1e-3 of its max
+    (TF32 is off); in bf16 with the flash kernels, the loss within 2e-2 (a
+    router near-tie rounded differently on the two devices sends a token to
+    another expert, which moves the grads by far more than rounding)."""
+    for dtype, attention, seq in (("f32", "naive", 64), ("bf16", "splash", 128)):
+        cfg = model.ModelConfig(vocab=512, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+                                max_seq=seq, num_experts=4, attention=attention,
+                                compute_dtype=dtype)
+        gen = torch.Generator().manual_seed(6)
+        cpu_params = model.init_params(gen, cfg, device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (4, cfg.max_seq), generator=gen)
+        vg = model.value_and_grad(model.loss_fn)
+        loss_c, grads_c = vg(cpu_params, tokens, cfg)
+        gpu_params = convert.tree_map(lambda p: p.cuda(), cpu_params)
+        before = attn_kernel.attn_bwd.launches
+        loss_g, grads_g = vg(gpu_params, tokens.cuda(), cfg)
+        if (attn_kernel.attn_bwd.launches > before) != (attention == "splash"):
+            fail(f"moe_small ({dtype}): attention kernels launched "
+                 f"{attn_kernel.attn_bwd.launches - before} times")
+        diff = abs(float(loss_g) - float(loss_c))
+        worst = max(float((gg.cpu() - gc).abs().max()) / float(gc.abs().max())
+                    for gc, gg in zip(convert.tree_leaves(grads_c), convert.tree_leaves(grads_g)))
+        if dtype == "f32" and not (diff <= 1e-4 and worst <= 1e-3):
+            fail(f"moe_small (f32): loss off by {diff} (tol 1e-4) or a grad leaf by {worst} "
+                 "of its max (tol 1e-3) between card and CPU")
+        if dtype == "bf16" and not diff <= 2e-2:
+            fail(f"moe_small (bf16): loss {float(loss_g)} on the card, {float(loss_c)} on the CPU")
+        init, step = model.make_train_step(cfg)
+        _, _, loss = step(gpu_params, init(gpu_params), tokens.cuda())
+        if not math.isfinite(float(loss)):
+            fail(f"moe_small ({dtype}): non-finite loss")
+        log(f"moe_small ({dtype}, {attention}, seq {seq}): loss card={float(loss_g):.6f} "
+            f"cpu={float(loss_c):.6f} (diff {diff:.3g}), worst grad leaf diff {worst:.3g} of its max")
+
+
+def moe_accounting(moe, cfg, batch: int, n_params: int) -> dict:
+    """bench.py bench_moe's accounting, recomputed: active params (one
+    expert FFN per layer), the model FLOPs on them, and the hardware FLOPs
+    with the capacity padding the expert products really compute.  Plus
+    what that accounting leaves out: the dispatch (tec,td->ecd) and combine
+    (tec,ecd->td) products, 2·T·E·C·D each over the T = batch·seq tokens the
+    model routes, 2 in the forward and 3 in the backward (dispatch carries
+    no gradient, combine one through the gate)."""
+    tokens_per_step = batch * (cfg.max_seq - 1)
+    ffn_params_per_expert = 2 * cfg.d_model * cfg.d_ff
+    n_active = n_params - cfg.n_layers * (cfg.num_experts - 1) * ffn_params_per_expert
+    model_flops = tokens_per_step * (6 * n_active + 12 * cfg.n_layers * cfg.max_seq * cfg.d_model)
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=cfg.num_experts)
+    routed = tokens_per_step
+    padded_extra = max(0, cfg.num_experts * mcfg.capacity(routed) - routed)
+    T = batch * cfg.max_seq
+    C = mcfg.capacity(T)
+    return {
+        "params_m": n_params / 1e6, "active_params_m": n_active / 1e6,
+        "model_flops": model_flops,
+        "computed_flops": model_flops + 6 * ffn_params_per_expert * padded_extra * cfg.n_layers,
+        "capacity": C, "capacity_padding_overhead_pct": 100.0 * padded_extra / routed,
+        "dispatch_combine_flops": 5 * 2 * T * cfg.num_experts * C * cfg.d_model * cfg.n_layers,
+    }
+
+
+def time_dispatch_combine(torch, cfg, batch: int, capacity: int) -> float:
+    """ms of one layer's 5 dispatch and combine products (moe.moe_ffn's two
+    aten.mm and the three of their backward) at the step's shapes, bf16."""
+    T, EC, D = batch * cfg.max_seq, cfg.num_experts * capacity, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    slot = torch.randint(0, EC, (T,), generator=gen, device="cuda")
+    dispatch = (slot[:, None] == torch.arange(EC, device="cuda")).bfloat16()  # [T, E*C]
+    combine = dispatch * torch.rand(T, 1, generator=gen, device="cuda").bfloat16()
+    tokens, dy = (torch.randn(T, D, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    expert_out, d_in = (torch.randn(EC, D, generator=gen, device="cuda").bfloat16()
+                        for _ in range(2))
+
+    def products():
+        dispatch.t() @ tokens  # expert_in
+        combine @ expert_out  # y
+        dispatch @ d_in  # d tokens
+        dy @ expert_out.t()  # d combine
+        combine.t() @ dy  # d expert_out
+
+    return time_ms(torch, products, iters=5)
+
+
+def phase_moe(torch, drive, model, moe) -> dict:
+    """bench.py bench_moe at full width; returns the kernels' launches."""
+    cfg = model.ModelConfig(**MOE, attention="splash")
+    label = "moe (bench_moe: 8 experts, splash, dots, chunked CE, tree AdamW)"
+    launches, step_s, n_params = drive(label, cfg, MOE_BATCH, TIMED_STEPS, profile=True)
+    acct = moe_accounting(moe, cfg, MOE_BATCH, n_params)
+    expect_attention_launches(label, cfg, launches, 1 + TIMED_STEPS)
+    dc = acct["dispatch_combine_flops"]
+    dc_ms = time_dispatch_combine(torch, cfg, MOE_BATCH, acct["capacity"]) * cfg.n_layers
+    log(f"{label}: the 5 dispatch/combine products alone at the step's shapes: {dc_ms:.2f} ms "
+        f"a step ({dc_ms / (step_s * 1e3) * 100:.1f}% of the step, {dc / dc_ms / 1e9:.0f} TFLOP/s)")
+    log(f"{label}: params_m={acct['params_m']:.1f} active_params_m={acct['active_params_m']:.1f} "
+        f"capacity={acct['capacity']} capacity_padding_overhead_pct="
+        f"{acct['capacity_padding_overhead_pct']:.1f} model_tflop_per_step="
+        f"{acct['model_flops'] / 1e12:.3f} model_tflops_per_s={acct['model_flops'] / step_s / 1e12:.1f} "
+        f"hw_tflops_per_s={acct['computed_flops'] / step_s / 1e12:.1f} "
+        f"mfu_pct={acct['model_flops'] / step_s / PEAK_BF16_FLOPS * 100:.1f}; dispatch/combine "
+        f"products {dc / 1e12:.3f} TFLOP a step ({dc / acct['model_flops'] * 100:.0f}% of the "
+        f"model count; {dc / 1e12 / (PEAK_BF16_FLOPS / 1e15):.2f} ms at the bf16 peak)")
+    return launches
+
+
+def phase_distributed() -> None:
+    """Runs ``distributed_child`` in a process of its own, granted the card
+    through the env (TPU_VISIBLE_DEVICES, exported to CUDA by the child's
+    ClaimEnv.apply_cuda_env before its first CUDA call)."""
+    import os
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    if not visible.isdigit():
+        fail(f"CUDA_VISIBLE_DEVICES={visible!r} names no device index to grant")
+    env = dict(os.environ, TPU_VISIBLE_DEVICES=visible, TPUDRA_CHIP_COORDS="0,0,0")
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    t0 = time.perf_counter()
+    try:
+        child = subprocess.run([sys.executable, __file__, "--distributed"], env=env,
+                               capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the distributed phase did not end within 600 s")
+    for line in child.stdout.splitlines():
+        log(line)
+    if child.returncode != 0:
+        fail(f"the distributed phase exited {child.returncode}:\n{child.stderr[-4000:]}")
+    log(f"distributed: child process took {time.perf_counter() - t0:.1f} s")
+
+
+def distributed_child() -> int:
+    """The grant path on one card: the env → CUDA, a one-rank NCCL group
+    under a named mesh, the five collectives on CUDA tensors, and the
+    sharded step on a (1, 1, 1) mesh against the single-device step."""
+    from tpudra_torch.workload import envspec
+
+    grant = envspec.ClaimEnv.from_environ()
+    applied = grant.apply_cuda_env()  # before the first CUDA call
+    import torch
+    import torch.distributed as dist
+
+    from tpudra_torch.workload import collectives, convert, model
+
+    if not torch.cuda.is_available():
+        fail("distributed: no CUDA device after the grant's export")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = envspec.mesh_from_devices(("data",))
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"distributed: {dist.get_backend()} group of {dist.get_world_size()}")
+    verified = collectives.verify_collectives(mesh, "data")
+    results = collectives.run_all(mesh, "data", mib_per_device=64, iters=10)
+    if collectives.bandwidth_lines(results, mesh):
+        fail("distributed: a bandwidth was published from one rank")
+    log(f"distributed: grant {applied} on {torch.cuda.get_device_name(0)}; nccl, world 1; "
+        f"verified {verified}; benches ran at 64 MiB "
+        f"({', '.join(f'{r.op} {r.seconds_per_op * 1e3:.3f} ms' for r in results)}); "
+        "no GB/s is published from one rank")
+
+    mesh3 = envspec.mesh_from_devices(("dp", "sp", "tp"), (1, 1, 1))
+    for label, kw, batch in (("moe", dict(MOE), MOE_BATCH),
+                             ("dense, 2 layers", dict(FLAGSHIP, n_layers=2), BATCH)):
+        cfg = model.ModelConfig(**kw, attention="splash")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        params = model.init_params(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab, (batch, cfg.max_seq), generator=gen, device="cuda")
+        dparams = model.shard_params(params, mesh3, cfg)
+        dtokens = model.shard_batch(tokens, mesh3)
+        loss, grads = model.value_and_grad(model.loss_fn)(params, tokens, cfg)
+        s_loss, s_grads = model.sharded_value_and_grad(cfg, mesh3)(dparams, dtokens)
+        worst = max(float((s - g).abs().max()) / float(g.abs().max()) for s, g in zip(
+            convert.tree_leaves(s_grads), convert.tree_leaves(grads)))
+        del grads, s_grads
+        init, step = model.make_train_step(cfg)
+        sinit, sstep = model.make_sharded_train_step(cfg, mesh3)
+        state, sstate = init(params), sinit(dparams)
+        after = []
+        for _ in range(2):
+            params, state, l1 = step(params, state, tokens)
+            dparams, sstate, l2 = sstep(dparams, sstate, dtokens)
+            after.append((float(l1), float(l2)))
+        # Tolerances: loss 1e-3 of itself (a step apart, one near-tie routed
+        # otherwise moves it ~1e-4); grads 2e-2 of each leaf's max (the
+        # embedding's backward adds with atomics, in any order).
+        errs = [abs(float(s_loss) - float(loss))] + [abs(a - b) for a, b in after]
+        if not (max(errs) <= 1e-3 * float(loss) and worst <= 2e-2):
+            fail(f"distributed ({label}): sharded step loss {float(s_loss)} against {float(loss)}, "
+                 f"after steps {after}, worst grad leaf {worst} of its max")
+        log(f"distributed ({label}): sharded (1, 1, 1) loss {float(s_loss):.6f} single "
+            f"{float(loss):.6f}; worst grad leaf diff {worst:.3g} of its max (tol 2e-2); losses "
+            f"after 1 and 2 steps {after} (tol 1e-3 of the loss)")
+        del params, dparams, state, sstate
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return 0
 
 
 # Kernel-name fragments per category of the step's device time.
@@ -562,6 +798,8 @@ def phase_profile(torch, label, run_step, step_ms: float):
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--distributed"]:
+        return distributed_child()
     import torch
 
     if not torch.cuda.is_available():
@@ -574,6 +812,7 @@ def main() -> int:
         convert,
         envspec,
         model,
+        moe,
         opt_kernel,
     )
 
@@ -605,7 +844,7 @@ def main() -> int:
     drive = lambda *a, **kw: drive_step(torch, model, envspec, convert, counters, *a, **kw)  # noqa: E731
     cfg = model.ModelConfig(**FLAGSHIP, ce_impl="fused", opt_impl="fused", attention="naive",
                             remat="none")
-    fused = drive("step (fused CE, fused AdamW, naive)", cfg, BATCH, TIMED_STEPS, profile=True)
+    fused, _, _ = drive("step (fused CE, fused AdamW, naive)", cfg, BATCH, TIMED_STEPS, profile=True)
     for name in ("ce_fwd", "adamw_step"):
         if fused[name] <= 0:
             fail(f"the fused flagship step never launched the {name} kernel")
@@ -615,20 +854,29 @@ def main() -> int:
     # "dots", ce_impl "chunked", opt_impl "tree".
     cfg = model.ModelConfig(**FLAGSHIP, attention="splash")
     label = "step (bench: splash, dots, chunked CE, tree AdamW)"
-    bench = drive(label, cfg, BATCH, TIMED_STEPS, profile=True)
+    bench, _, _ = drive(label, cfg, BATCH, TIMED_STEPS, profile=True)
     expect_attention_launches(label, cfg, bench, 1 + TIMED_STEPS)
     torch.cuda.empty_cache()
 
     cfg = model.ModelConfig(**LONG, attention="splash")
     label = "long (bench long8192: splash, dots)"
-    long = drive(label, cfg, LONG_BATCH, LONG_TIMED_STEPS, profile=True)
+    long, _, _ = drive(label, cfg, LONG_BATCH, LONG_TIMED_STEPS, profile=True)
     expect_attention_launches(label, cfg, long, 1 + LONG_TIMED_STEPS)
+    torch.cuda.empty_cache()
+
+    phase_moe_small(torch, model, convert, attn_kernel)
+    torch.cuda.empty_cache()
+    moe_runs = phase_moe(torch, drive, model, moe)
+    torch.cuda.empty_cache()
+    phase_distributed()
 
     # Each kernel's launches from the step that runs it.
     for k in kernels:
         runs = fused if k["name"] in ("ce_fwd", "adamw_step") else bench
         k["launches"] = runs[k["name"]]
         k["launches_per_step"] = k["launches"] / (1 + TIMED_STEPS)
+        if k["name"] in moe_runs:
+            k["moe_launches"] = moe_runs[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

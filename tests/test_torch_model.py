@@ -20,6 +20,8 @@ from tpudra.workload.opt_kernel import fused_adamw as jax_fused_adamw
 from tpudra_torch.workload import model as tm
 from tpudra_torch.workload.convert import params_from_numpy, params_to_numpy
 
+from torch_gloo import numpy_params
+
 KW = dict(vocab=128, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq=32)
 BATCH = 3
 LR = 1e-3
@@ -35,30 +37,7 @@ CASES = {
 def _numpy_params(seed=0):
     """The init_params tree (JAX layout) from numpy; norm scales are drawn
     around 1 so that a dropped scale would show."""
-    rng = np.random.default_rng(seed)
-    L, D, F, V, S = KW["n_layers"], KW["d_model"], KW["d_ff"], KW["vocab"], KW["max_seq"]
-    H = KW["n_heads"]
-    hd = D // H
-
-    def dense(shape, scale):
-        return (rng.standard_normal(shape) * scale).astype(np.float32)
-
-    def norm(shape):
-        return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-
-    return {
-        "embed": dense((V, D), 0.02),
-        "pos": dense((S, D), 0.02),
-        "layers": {
-            "wqkv": dense((L, D, H, 3 * hd), D ** -0.5),
-            "wo": dense((L, H, hd, D), D ** -0.5),
-            "w1": dense((L, D, F), D ** -0.5),
-            "w2": dense((L, F, D), F ** -0.5),
-            "ln1": norm((L, D)),
-            "ln2": norm((L, D)),
-        },
-        "ln_f": norm((D,)),
-    }
+    return numpy_params(KW, seed)
 
 
 def _tokens(seed=1):
@@ -205,13 +184,14 @@ def test_config_validation_matches_jax():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
+    """Every path of the model that once raised NotImplementedError with its
+    ROADMAP item is ported now: the attention kernel paths
+    (tests/test_torch_attention.py), MoE (tests/test_torch_moe.py) and the
+    tensor-parallel layout (tests/test_torch_parallel.py) build."""
     gen = torch.Generator()
-    # The attention kernel paths are ported (tests/test_torch_attention.py).
     for kw in (dict(attention="flash"), dict(attention="splash")):
         assert tm.init_params(gen, tm.ModelConfig(**kw), device="cpu")["layers"]["wqkv"].ndim == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(gen, tm.ModelConfig(num_experts=4), device="cpu")
-    for fn, args in ((tm.param_specs, (tm.ModelConfig(),)), (tm.batch_spec, ()),
-                     (tm.shard_params, (None, None, tm.ModelConfig()))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args)
+    moe = tm.ModelConfig(num_experts=4)
+    assert tm.init_params(gen, moe, device="cpu")["layers"]["w1"].shape == (2, 4, 128, 256)
+    assert tm.param_specs(moe)["layers"]["w1"][2].dim == 1
+    assert len(tm.batch_spec()) == 3

@@ -12,9 +12,12 @@ Functions keep the JAX names so each has a visible counterpart.  Parameters
 are plain tensors; ``value_and_grad`` differentiates a loss with respect to
 a parameter tree, and the optimizers update params and moments in place.
 
-Ported: the dense single-device path, with naive or flash attention.  Not
-yet ported (raising NotImplementedError with the ROADMAP item that ports
-each): MoE layers and the tensor-parallel layout.
+Ported: the dense and Switch-MoE models on one device, with naive or flash
+attention, and the same models sharded over a ("dp", "sp", "tp") device
+mesh (``param_specs``, ``shard_params``, ``make_sharded_train_step``): each
+rank computes on its local shards with the collectives of
+``tpudra_torch.workload.parallel`` placed by hand where GSPMD places them
+in the JAX program.  Ring attention and the pipeline are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,10 +34,21 @@ from torch.utils.checkpoint import (
 )
 
 from tpudra_torch.workload.attn_kernel import HEAD_DIMS, flash_attention
-from tpudra_torch.workload.ce_kernel import fused_ce_mean, matmul_f32
+from tpudra_torch.workload.ce_kernel import fused_ce_sum, matmul_f32
 from tpudra_torch.workload.convert import tree_leaves, tree_map, tree_unflatten
 from tpudra_torch.workload.device import resolve_device
+from tpudra_torch.workload.moe import MoEConfig, moe_ffn
 from tpudra_torch.workload.opt_kernel import bias_corrections, fused_adamw, init_bf16_moments
+from tpudra_torch.workload.parallel import (
+    Groups,
+    copy_to,
+    mean_over,
+    distribute_local,
+    gather,
+    local_tree,
+    reduce_from,
+    split,
+)
 
 
 @dataclass(frozen=True)
@@ -66,7 +80,9 @@ class ModelConfig:
     #   "full"  — save nothing, recompute everything
     #   "none"  — save all residuals
     remat: str = "dots"
-    # Sparse (Switch-MoE) FFN: 0 = dense.  Not ported yet.
+    # Sparse (Switch-MoE) FFN: 0 = dense.  With E experts each layer's FFN
+    # is top-1 routed (moe.moe_ffn); the expert axis shards over tp in
+    # param_specs, and loss_fn adds moe_aux_weight * the mean aux loss.
     num_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -131,18 +147,10 @@ class ModelConfig:
         )
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "num_experts > 0 is not ported yet (ROADMAP queue 1, item 5: MoE)"
-        )
-
-
 def init_params(rng: torch.Generator, cfg: ModelConfig, device=None):
     """Random params with the JAX tree, shapes and scales, drawn from ``rng``
     (a generator on ``device``, default CUDA).  The draws differ from
     ``jax.random``; tests carry JAX params over with convert.params_from_numpy."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     if rng.device.type != dev.type:
         raise ValueError(f"rng is on {rng.device}, params go to {dev}")
@@ -150,9 +158,17 @@ def init_params(rng: torch.Generator, cfg: ModelConfig, device=None):
     def dense(shape, scale):
         return torch.randn(shape, generator=rng, dtype=torch.float32, device=dev) * scale
 
-    L, D, F_ = cfg.n_layers, cfg.d_model, cfg.d_ff
+    L, D, F_, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.num_experts
     H, hd = cfg.n_heads, cfg.head_dim
     s = D ** -0.5
+    if E:
+        ffn = {
+            "router": dense((L, D, E), s),
+            "w1": dense((L, E, D, F_), s),
+            "w2": dense((L, E, F_, D), F_ ** -0.5),
+        }
+    else:
+        ffn = {"w1": dense((L, D, F_), s), "w2": dense((L, F_, D), F_ ** -0.5)}
     return {
         "embed": dense((cfg.vocab, D), 0.02),
         "pos": dense((cfg.max_seq, D), 0.02),
@@ -160,8 +176,7 @@ def init_params(rng: torch.Generator, cfg: ModelConfig, device=None):
         "layers": {
             "wqkv": dense((L, D, H, 3 * hd), s),
             "wo": dense((L, H, hd, D), s),
-            "w1": dense((L, D, F_), s),
-            "w2": dense((L, F_, D), F_ ** -0.5),
+            **ffn,
             "ln1": torch.ones((L, D), dtype=torch.float32, device=dev),
             "ln2": torch.ones((L, D), dtype=torch.float32, device=dev),
         },
@@ -175,22 +190,34 @@ def _rmsnorm(x, scale):
     return (x32 * inv * scale).to(x.dtype)
 
 
-def _layer(cfg: ModelConfig, x, layer_params):
+def _moe_config(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=cfg.num_experts,
+                     capacity_factor=cfg.moe_capacity_factor, compute_dtype=cfg.compute_dtype)
+
+
+def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None):
     """One decoder block; x: [B, S, D] in cfg.act_dtype.  Returns (x, aux),
-    aux being the (zero) MoE loss of a dense layer.
+    aux being the MoE load-balancing loss (zero for a dense layer).
 
     Every projection is a 2-D product over the flattened [B*S] rows (an
     ``aten.mm``, what the "dots" remat policy keeps); attention's products
     carry batch dims (``aten.bmm``), and the flash kernels are no ``aten.mm``,
     so under "dots" the attention core is recomputed, as JAX recomputes the
     splash call.
+
+    With ``groups``, the params are this rank's shards (Megatron: qkv and
+    w1 column-parallel, wo and w2 row-parallel, the experts split over tp)
+    and x is the same on every tp rank: f before each column-parallel
+    product, g after each row-parallel one.
     """
     B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H = layer_params["wqkv"].shape[-2]  # this rank's heads
     act = cfg.act_dtype
     p = layer_params
+    tp = groups.tp if groups else None
 
-    h = _rmsnorm(x, p["ln1"])
+    h = copy_to(_rmsnorm(x, p["ln1"]), tp)
     # [D, H, 3hd] → [D, H, 3, hd]: q, k, v split on the 3-axis.
     wqkv = p["wqkv"].to(act).reshape(D, H * 3 * hd)
     qkv = (h.reshape(B * S, D) @ wqkv).view(B, S, H, 3, hd).permute(3, 0, 2, 1, 4)
@@ -209,20 +236,27 @@ def _layer(cfg: ModelConfig, x, layer_params):
         probs = torch.softmax(scores, dim=-1).to(act)
         attn = torch.matmul(probs, v)  # [B, H, S, hd]
     attn = attn.permute(0, 2, 1, 3).reshape(B * S, H * hd)
-    x = x + (attn @ p["wo"].to(act).reshape(H * hd, D)).view(B, S, D)
+    x = x + reduce_from(attn @ p["wo"].to(act).reshape(H * hd, D), tp).view(B, S, D)
 
-    h = _rmsnorm(x, p["ln2"]).reshape(B * S, D)
-    h = h @ p["w1"].to(act)
+    h = _rmsnorm(x, p["ln2"])
+    if cfg.num_experts:
+        moe_params = {k: p[k] for k in ("router", "w1", "w2")}
+        ffn, aux = moe_ffn(moe_params, h, _moe_config(cfg), ep_group=tp,
+                           token_group=groups.dp if groups else None)
+        return x + ffn, aux
+    h = copy_to(h, tp).reshape(B * S, D) @ p["w1"].to(act)
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    h = h @ p["w2"].to(act)
+    h = reduce_from(h @ p["w2"].to(act), tp)
     return x + h.view(B, S, D), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    """tokens [B, S] int → embedded inputs [B, S, D] in cfg.act_dtype."""
+def embed_tokens(params, tokens, cfg: ModelConfig, groups: Groups | None = None):
+    """tokens [B, S] int → embedded inputs [B, S, D] in cfg.act_dtype.  A
+    D-sharded table gives this rank's slice of D, gathered over tp."""
     S = tokens.shape[1]
     x = params["embed"][tokens].to(cfg.act_dtype)
-    return x + params["pos"][:S].to(cfg.act_dtype)[None]
+    x = x + params["pos"][:S].to(cfg.act_dtype)[None]
+    return gather(x, groups.tp if groups else None, dim=2, partial_grads=False)
 
 
 _DOTS = {torch.ops.aten.mm.default}
@@ -235,10 +269,10 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def remat_layer_body(cfg: ModelConfig):
+def remat_layer_body(cfg: ModelConfig, groups: Groups | None = None):
     """The per-layer body ``(x, layer_params) -> (x, aux)`` with cfg.remat
     applied."""
-    layer_body = partial(_layer, cfg)
+    layer_body = partial(_layer, cfg, groups=groups)
     if cfg.remat == "none":
         return layer_body
     if cfg.remat == "full":
@@ -249,12 +283,11 @@ def remat_layer_body(cfg: ModelConfig):
     )
 
 
-def backbone_and_aux(params, tokens, cfg: ModelConfig):
+def backbone_and_aux(params, tokens, cfg: ModelConfig, groups: Groups | None = None):
     """tokens [B, S] int → (hidden states [B, S, D] in cfg.act_dtype, mean
     per-layer MoE aux loss — zero for dense models)."""
-    _check_ported(cfg)
-    x = embed_tokens(params, tokens, cfg)
-    layer = remat_layer_body(cfg)
+    x = embed_tokens(params, tokens, cfg, groups)
+    layer = remat_layer_body(cfg, groups)
     # unbind (not indexing) so the backward stacks the per-layer grads once.
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
     auxs = []
@@ -275,31 +308,45 @@ def forward(params, tokens, cfg: ModelConfig):
     return matmul_f32(x, params["embed"].to(cfg.act_dtype).t())
 
 
-def loss_fn(params, tokens, cfg: ModelConfig):
+def loss_fn(params, tokens, cfg: ModelConfig, groups: Groups | None = None):
     """Next-token NLL over tokens [B, S]: the whole sequence goes through
-    the backbone and the shift happens at the loss."""
-    x, aux = backbone_and_aux(params, tokens, cfg)
-    loss = ce_head(params, x, tokens, cfg)
+    the backbone and the shift happens at the loss.  With ``groups``: this
+    rank's shards, and the tokens of its dp shard (whole sequences)."""
+    x, aux = backbone_and_aux(params, tokens, cfg, groups)
+    loss = ce_head(params, x, tokens, cfg, groups)
     if cfg.num_experts:
         loss = loss + cfg.moe_aux_weight * aux
     return loss
 
 
-def ce_head(params, x, tokens, cfg: ModelConfig):
+def ce_head(params, x, tokens, cfg: ModelConfig, groups: Groups | None = None):
     """The cross-entropy head over hidden states [B, S, D]: chunked over
     the sequence (logits in f32 per chunk, reduced to logsumexp - target
-    logit at once) or fused (ce_kernel)."""
-    xs, targets = x[:, :-1], tokens[:, 1:]
-    B, Sm1, D = xs.shape
+    logit at once) or fused (ce_kernel).
 
+    Over tp, the D-sharded ``embed`` is gathered (its gradient
+    reduce-scattered) and each rank takes an equal share of the batch rows,
+    rather than each computing [B, S, V] logits for a slice of D and
+    all-reducing them; the sums meet in one all-reduce."""
+    xs, targets = x[:, :-1], tokens[:, 1:]
+    B, Sm1, _ = xs.shape
+    embed = params["embed"]
+    tp = groups.tp if groups else None
+    if tp is not None:
+        embed = gather(embed, tp, dim=1, partial_grads=True)
+        xs, targets = split(xs, tp, dim=0), split(targets, tp, dim=0)
+    return reduce_from(_ce_sum(embed, xs, targets, cfg), tp) / (B * Sm1)
+
+
+def _ce_sum(embed, xs, targets, cfg: ModelConfig):
+    """Σ (logsumexp − target logit) over the rows of xs [b, s, D]."""
+    b, s, D = xs.shape
     if cfg.ce_impl == "fused":
-        return fused_ce_mean(
-            xs.reshape(B * Sm1, D),
-            params["embed"],
-            targets.reshape(-1).to(torch.int32),
+        return fused_ce_sum(
+            xs.reshape(b * s, D), embed, targets.reshape(-1).to(torch.int32), b * s
         )
 
-    emb_t = params["embed"].to(cfg.act_dtype).t()
+    emb_t = embed.to(cfg.act_dtype).t()
 
     def ce_sum(xc, tc):
         logits = matmul_f32(xc, emb_t)  # bf16 operands, f32 result
@@ -308,14 +355,14 @@ def ce_head(params, x, tokens, cfg: ModelConfig):
         return (lse - tgt).sum()
 
     chunk = cfg.ce_chunk
-    n = Sm1 // chunk
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = s // chunk
+    total = torch.zeros((), dtype=torch.float32, device=xs.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + ce_sum(xs[:, sl], targets[:, sl])
-    if Sm1 % chunk:
+    if s % chunk:
         total = total + ce_sum(xs[:, n * chunk:], targets[:, n * chunk:])
-    return total / (B * Sm1)
+    return total
 
 
 def value_and_grad(fn):
@@ -359,46 +406,121 @@ def adamw_bf16_moments(learning_rate: float, b1=0.9, b2=0.999, eps=1e-8, wd=1e-4
     return init_bf16_moments, update
 
 
+def _optimizer(cfg: ModelConfig, learning_rate: float):
+    """(init, apply) of cfg.opt_impl's AdamW; apply(params, grads, state)
+    updates the params in place and returns the new state."""
+    if cfg.opt_impl == "fused":
+        finit, fapply = fused_adamw(learning_rate)
+        return finit, lambda params, grads, state: fapply(params, grads, state)[1]
+
+    init, update = adamw_bf16_moments(learning_rate)
+
+    def apply(params, grads, state):
+        updates, state = update(grads, state, params)
+        # p + u, as the JAX tree path adds the update.
+        tree_map(lambda p, u: p.add_(u), params, updates)
+        return state
+
+    return init, apply
+
+
 def make_train_step(cfg: ModelConfig, learning_rate: float = 1e-3):
     """Returns (init_opt_state, train_step);
     train_step(params, opt_state, tokens) -> (params, opt_state, loss).
     Params are updated in place and returned."""
     grad_fn = value_and_grad(loss_fn)
-
-    if cfg.opt_impl == "fused":
-        finit, fapply = fused_adamw(learning_rate)
-
-        def train_step(params, opt_state, tokens):
-            loss, grads = grad_fn(params, tokens, cfg)
-            params, opt_state = fapply(params, grads, opt_state)
-            return params, opt_state, loss
-
-        return finit, train_step
-
-    init, update = adamw_bf16_moments(learning_rate)
+    init, apply = _optimizer(cfg, learning_rate)
 
     def train_step(params, opt_state, tokens):
         loss, grads = grad_fn(params, tokens, cfg)
-        updates, opt_state = update(grads, opt_state, params)
-        # p + u, as the JAX tree path adds the update.
-        tree_map(lambda p, u: p.add_(u), params, updates)
-        return params, opt_state, loss
+        return params, apply(params, grads, opt_state), loss
 
     return init, train_step
 
 
-# -- sharding layout: not ported yet -----------------------------------------
-
-_TP_TODO = "the tensor-parallel layout is not ported yet (ROADMAP queue 1, item 4)"
+# -- sharding layout ---------------------------------------------------------
 
 
 def param_specs(cfg: ModelConfig):
-    raise NotImplementedError(_TP_TODO)
+    """The Megatron tensor-parallel layout as DTensor placements over a
+    ("dp", "sp", "tp") mesh (the JAX package's PartitionSpecs): params
+    replicated over dp and sp; on tp, column-parallel wqkv, w1 and embed's
+    and pos's model dim, row-parallel wo and w2, norms replicated.  MoE
+    models shard the expert axis over tp instead (tp must divide
+    num_experts), router replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R = Replicate()
+
+    def tp(dim):
+        return (R, R, Shard(dim))
+
+    rep = (R, R, R)
+    if cfg.num_experts:
+        ffn = {"router": rep, "w1": tp(1), "w2": tp(1)}
+    else:
+        ffn = {"w1": tp(2), "w2": tp(1)}
+    return {
+        "embed": tp(1),
+        "pos": tp(1),
+        "layers": {
+            # The head axis (tp must divide H); the per-head minors stay whole.
+            "wqkv": tp(2),
+            "wo": tp(1),
+            **ffn,
+            "ln1": rep,
+            "ln2": rep,
+        },
+        "ln_f": rep,
+    }
 
 
 def batch_spec():
-    raise NotImplementedError(_TP_TODO)
+    """Token batch [B, S]: B over dp, S over sp, replicated over tp.  The
+    dense model gathers the sequence over sp before it runs, so sp ranks
+    compute the same thing: sequence-parallel compute is ring attention's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return (Shard(0), Shard(1), Replicate())
 
 
 def shard_params(params, mesh, cfg: ModelConfig):
-    raise NotImplementedError(_TP_TODO)
+    """The parameter tree (the same on every rank) as DTensors over
+    ``mesh`` with ``param_specs``; each rank keeps its own copy of its shard."""
+    return tree_map(lambda p, spec: distribute_local(p, mesh, spec), params, param_specs(cfg))
+
+
+def shard_batch(tokens, mesh):
+    """Tokens [B, S] (the same on every rank) as a DTensor with ``batch_spec``."""
+    return distribute_local(tokens, mesh, batch_spec())
+
+
+def sharded_value_and_grad(cfg: ModelConfig, mesh):
+    """``fn(dparams, dtokens) -> (loss, grads)`` for the model sharded over
+    ``mesh``: the loss of the global batch, and this rank's local shard of
+    each gradient, averaged over dp."""
+    groups = Groups.from_mesh(mesh)
+    grad_fn = value_and_grad(loss_fn)
+
+    def wrapped(dparams, dtokens):
+        tokens = gather(dtokens.to_local(), groups.sp, dim=1, partial_grads=False)
+        loss, grads = grad_fn(local_tree(dparams), tokens, cfg, groups)
+        with torch.no_grad():
+            mean = partial(mean_over, group=groups.dp)
+            return mean(loss), tree_map(mean, grads)
+
+    return wrapped
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh, learning_rate: float = 1e-3):
+    """``make_train_step`` for params from ``shard_params`` and tokens from
+    ``shard_batch``: (init_opt_state, train_step).  AdamW runs on each
+    rank's local shards; the DTensors are updated in place and returned."""
+    grad_fn = sharded_value_and_grad(cfg, mesh)
+    init, apply = _optimizer(cfg, learning_rate)
+
+    def train_step(dparams, opt_state, dtokens):
+        loss, grads = grad_fn(dparams, dtokens)
+        return dparams, apply(local_tree(dparams), grads, opt_state), loss
+
+    return lambda dparams: init(local_tree(dparams)), train_step
