@@ -37,13 +37,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               tree AdamW); 1 warm-up and 3 timed steps, then profiled;
               bench_moe's accounting recomputed here, plus the FLOPs of the
               dispatch and combine products it leaves out
-  9. distributed: a child process granted the card through the env
+  9. ring:    ring attention's block schedule in one process
+              (ringattention.ring_blocks, the code each rank of the ring
+              runs) at the long step's attention shape in 8 blocks of 1024:
+              o, dq, dk and dv row by row against the flash kernels and
+              their plain versions, and timed beside the kernels
+ 10. entry:   entry()'s forward on the card against the CPU
+ 11. distributed: a child process granted the card through the env
               (ClaimEnv.apply_cuda_env, mesh_from_devices over a one-rank
               NCCL group): verify_collectives and the five benches on the
-              card (no GB/s is published from one rank), then the sharded
-              train step on a (1, 1, 1) ("dp", "sp", "tp") mesh against the
+              card (no GB/s is published from one rank); the sharded train
+              step on a (1, 1, 1) ("dp", "sp", "tp") mesh against the
               single-device step, at the MoE configuration and dense at the
-              flagship width with 2 layers
+              flagship width with 2 layers; the model with ring attention
+              on that mesh (dense, flagship width, 2 layers); the pipelined
+              step on a (1, 1, 1) ("pp", "dp", "tp") mesh in PIPE_M
+              microbatches at the flagship configuration (1 warm-up and 3
+              timed steps, with its attention launches) and at bench_moe's,
+              each against the single-device step
 Each step phase sets every kernel's launch count to 0 just before it and
 reads the counts just after.
 
@@ -84,6 +95,12 @@ ADAMW_P_TOL = 1e-6  # params; moments must be bit-identical
 # misses it by 20x or more (phase_attention checks that too).
 ATTN_TOL = 2e-2
 LSE_TOL = 1e-3
+# Ring attention (plain PyTorch, JAX's ring math) against the exact attention
+# of the same bf16 inputs, row by row: the ring rounds the unscaled q·kᵀ
+# (|s| ~ 11 at hd 128) to bf16 before it scales it, as the JAX ring does,
+# where the kernels multiply a pre-scaled q exactly; worst rows ~2% seen
+# (p99.99 ~1.1%).  A ring that drops one block step misses by 0.8 or more.
+RING_TOL = 4e-2
 
 
 def attn_shape(batch, n_heads, max_seq, d_model, **_) -> tuple:
@@ -91,14 +108,21 @@ def attn_shape(batch, n_heads, max_seq, d_model, **_) -> tuple:
     return (batch, n_heads, max_seq, d_model // n_heads)
 
 
-# Every step this script drives at full width, with its batch; its attention
-# shape is held against the plain versions (drive_step refuses a flash step
-# whose shape is not in ATTN_SHAPES).
-STEPS = ((FLAGSHIP, BATCH), (LONG, LONG_BATCH), (MOE, MOE_BATCH))
-FLAGSHIP_ATTN, LONG_ATTN, MOE_ATTN = (attn_shape(b, **c) for c, b in STEPS)
+# The pipelined steps' microbatches (pipeline.py, pp = 1 on one card).
+PIPE_M = 4
+# Every step this script drives at full width, with the batch its attention
+# sees (a pipelined step's microbatch); its attention shape is held against
+# the plain versions (a flash step whose shape is not in ATTN_SHAPES is
+# refused).
+STEPS = ((FLAGSHIP, BATCH), (LONG, LONG_BATCH), (MOE, MOE_BATCH),
+         (FLAGSHIP, BATCH // PIPE_M), (MOE, MOE_BATCH // PIPE_M))
+FLAGSHIP_ATTN, LONG_ATTN, MOE_ATTN, PIPE_ATTN, PIPE_MOE_ATTN = (attn_shape(b, **c) for c, b in STEPS)
 # [B, H, S, hd]: the steps' shapes, head width 64 at the flagship d_model,
 # and a ragged sequence.
-ATTN_SHAPES = (FLAGSHIP_ATTN, (BATCH, 32, 1024, 64), (2, 4, 1000, 128), MOE_ATTN, LONG_ATTN)
+ATTN_SHAPES = (FLAGSHIP_ATTN, (BATCH, 32, 1024, 64), (2, 4, 1000, 128), MOE_ATTN, PIPE_ATTN,
+               PIPE_MOE_ATTN, LONG_ATTN)
+# The ring phase: the long step's attention in RING_BLOCKS sequence blocks.
+RING_BLOCKS = 8
 
 
 def fail(msg: str) -> None:
@@ -443,6 +467,122 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
     return out
 
 
+def ring_skipping(torch, ringattention, q, k, v, skip: tuple):
+    """ring_blocks' schedule with the (q block, k/v block) step ``skip``
+    left out: what a ring that drops one hop would return."""
+    s = q.shape[2] // RING_BLOCKS
+    qs, ks, vs = (t.split(s, dim=2) for t in (q, k, v))
+    outs = []
+    for i in range(RING_BLOCKS):
+        state = ringattention.init_state(qs[i], "bhsd")
+        for step in range(RING_BLOCKS):
+            j = (i - step) % RING_BLOCKS
+            if (i, j) != skip:
+                state = ringattention.block_update(qs[i], ks[j], vs[j], state, i * s, j * s,
+                                                   True, "bhsd")
+        outs.append(ringattention.finish(state, "bhsd", q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def phase_ring(torch, attn_kernel, ringattention) -> None:
+    """Ring attention's block schedule in one process (ring_blocks: the
+    block_update each rank of an sp ring runs, over RING_BLOCKS blocks) at
+    the long step's attention shape, bf16: o, and dq, dk, dv of Σ do·o, row
+    by row (attn_kernel.row_errs, RING_TOL) against the plain versions run
+    in f32 on the same bf16 inputs with q scaled in f32 (the exact
+    attention of those inputs) and against the flash kernels (q scaled by
+    hd^-½ and rounded to bf16 for them: the ring scales its f32 scores); a
+    ring that drops one block step must fail;
+    then its forward and backward timed beside the kernels'.  The ring is
+    plain PyTorch, as the JAX ring is plain einsums: its time is recorded,
+    not judged."""
+    B, H, S, hd = LONG_ATTN
+    scale = hd ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(B, H, S, hd, generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    qs = (q.float() * scale).bfloat16()
+
+    def ring(*qkv):
+        return ringattention.ring_blocks(*qkv, n_blocks=RING_BLOCKS, causal=True, layout="bhsd")
+
+    def with_grads(fn):
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fn(*qkv)
+        return (o.detach(), *torch.autograd.grad(o, qkv, do))
+
+    torch.cuda.reset_peak_memory_stats()
+    got = with_grads(ring)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    f32 = [q.float() * scale, k.float(), v.float()]
+    o32, lse32 = by_slice(torch, attn_kernel.attn_fwd_plain, *f32)
+    dq32, dk32, dv32 = by_slice(torch, attn_kernel.attn_bwd_plain, *f32, o32, lse32, do.float())
+    exact = (o32, dq32 * scale, dk32, dv32)
+    del f32, lse32, dq32
+    o_k, lse_k = attn_kernel.attn_fwd(qs, k, v)
+    dq_k, dk_k, dv_k = attn_kernel.attn_bwd(qs, k, v, o_k, lse_k, do)
+    kernels = (o_k, dq_k.float() * scale, dk_k, dv_k)
+    names = ("o", "dq", "dk", "dv")
+    rows = attn_kernel.row_errs
+    to_exact = {n: float(rows(g, w).max()) for n, g, w in zip(names, got, exact)}
+    kernels_to_exact = {n: float(rows(g, w).max()) for n, g, w in zip(names, kernels, exact)}
+    # Against the kernels, every row of o, dk, dv; of dq the rows where the
+    # kernels' own dq is within ATTN_TOL of the exact one: the first
+    # queries' dq is a small difference, and the kernels take di =
+    # rowsum(o·do) from o rounded to bf16 (kernels_to_exact logs how far).
+    trusted = rows(kernels[1], exact[1]) <= ATTN_TOL
+    to_kernels = {n: float(rows(g, w)[trusted if n == "dq" else ...].max())
+                  for n, g, w in zip(names, got, kernels)}
+    if not max(max(to_exact.values()), max(to_kernels.values())) <= RING_TOL:
+        fail(f"ring {list(LONG_ATTN)}: worst rows {to_exact} off the exact attention, "
+             f"{to_kernels} off the kernels (of the row's norm, tol {RING_TOL})")
+    # The comparison has teeth: a ring that drops one hop fails it.
+    skip = (RING_BLOCKS - 1, RING_BLOCKS - 2)
+    bad = with_grads(lambda *qkv: ring_skipping(torch, ringattention, *qkv, skip=skip))
+    caught = {n: float(rows(b, w).max()) for n, b, w in zip(names, bad, exact)}
+    if not min(caught.values()) > RING_TOL:
+        fail(f"the ring check passes a ring that drops a block step: {caught}")
+    del got, exact, kernels, bad, dq_k, dk_k, dv_k, trusted
+
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: ring(q, k, v), iters=3, warmup=1)
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = ring(*qkv)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(o, qkv, do, retain_graph=True),
+                     iters=3, warmup=1)
+    del o, qkv
+    kfwd_ms = time_ms(torch, lambda: attn_kernel.attn_fwd(qs, k, v), iters=5)
+    kbwd_ms = time_ms(torch, lambda: attn_kernel.attn_bwd(qs, k, v, o_k, lse_k, do), iters=5)
+
+    def fmt(errs):
+        return ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+
+    log(f"ring {list(LONG_ATTN)} in {RING_BLOCKS} blocks of {S // RING_BLOCKS} (one process, "
+        f"every step of the ring, masked blocks included): worst row off the exact attention "
+        f"{fmt(to_exact)}, off the kernels {fmt(to_kernels)} (of the row's norm, tol "
+        f"{RING_TOL}); the kernels off the exact attention {fmt(kernels_to_exact)}; one block "
+        f"step dropped: {fmt(caught)}")
+    log(f"ring {list(LONG_ATTN)}: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
+        f"(peak {peak_gb:.2f} GB with its graph); attn_fwd {kfwd_ms:.3f} ms, attn_bwd "
+        f"{kbwd_ms:.3f} ms at the same shape: {fwd_ms / kfwd_ms:.1f}x and "
+        f"{bwd_ms / kbwd_ms:.1f}x the kernels'")
+
+
+def phase_entry(torch, entry, convert) -> None:
+    """entry()'s forward (the compile-check surface) on the card, against
+    the same params and tokens on the CPU: logits [2, 32, 256], finite,
+    within 5e-2 of the largest |logit| (bf16 rounds at other places on the
+    two devices)."""
+    fn, (params, tokens) = entry.entry()
+    out = fn(params, tokens)
+    want = fn(convert.tree_map(lambda t: t.cpu(), params), tokens.cpu())
+    err = float((out.cpu() - want).abs().max()) / float(want.abs().max())
+    if tuple(out.shape) != (2, 32, 256) or not bool(torch.isfinite(out).all()) or not err <= 5e-2:
+        fail(f"entry: logits {tuple(out.shape)}, {err} of the largest |logit| off the CPU")
+    log(f"entry: forward on {out.device}: logits {list(out.shape)} {out.dtype}, "
+        f"{err:.3g} of the largest |logit| off the CPU (tol 5e-2)")
+
+
 def phase_small(torch, model, convert, attn_kernel):
     """The same small train step's loss and grads on the card (kernels) and
     on the CPU (plain versions, held against the JAX package by the tests),
@@ -482,17 +622,22 @@ def phase_small(torch, model, convert, attn_kernel):
             f"cpu={float(loss_c):.6f}, worst grad leaf diff {worst:.3g} of its max (tol 5e-2)")
 
 
+def check_attn_shape(label, cfg, batch) -> None:
+    """Refuses a flash step whose attention shape is not in ATTN_SHAPES."""
+    if cfg.use_flash_attention(cfg.max_seq, "cuda"):
+        shape = attn_shape(batch, cfg.n_heads, cfg.max_seq, cfg.d_model)
+        if shape not in ATTN_SHAPES:
+            fail(f"{label}: attention shape {shape} is not held against the plain versions "
+                 f"(ATTN_SHAPES)")
+
+
 def drive_step(torch, model, envspec, convert, counters, label, cfg, batch, timed, profile=False):
     """Train ``cfg`` on the one granted device: 1 warm-up and ``timed`` timed
     steps, every kernel's launch count set to 0 just before and read just
     after.  Checks the losses; returns ({kernel name: launches}, step
     seconds, params).  A dense step's MFU is logged with bench.py's count;
     an MoE step's is its caller's (moe_accounting)."""
-    if cfg.use_flash_attention(cfg.max_seq, "cuda"):
-        shape = attn_shape(batch, cfg.n_heads, cfg.max_seq, cfg.d_model)
-        if shape not in ATTN_SHAPES:
-            fail(f"{label}: attention shape {shape} is not held against the plain versions "
-                 f"(ATTN_SHAPES)")
+    check_attn_shape(label, cfg, batch)
     grant = envspec.ClaimEnv.from_environ({"TPU_VISIBLE_DEVICES": "0", "TPUDRA_CHIP_COORDS": "0,0,0"})
     if len(grant.visible_devices) != 1 or grant.mesh_bounds != (1, 1, 1):
         fail(f"one-device grant parsed as {grant.visible_devices} {grant.mesh_bounds}")
@@ -544,12 +689,14 @@ def drive_step(torch, model, envspec, convert, counters, label, cfg, batch, time
     return launches, step_s, n_params
 
 
-def expect_attention_launches(label, cfg, launches, steps):
+def expect_attention_launches(label, cfg, launches, steps, microbatches=1):
     """The flash kernels' launches that cfg.remat implies: the attention
     core is no aten.mm, so "dots" recomputes it like "full" (2 forward
-    launches per layer and step, against 1 under "none"); 1 backward."""
+    launches per layer, microbatch and step, against 1 under "none"); 1
+    backward."""
     per_layer = 1 if cfg.remat == "none" else 2
-    want = {"attn_fwd": per_layer * cfg.n_layers * steps, "attn_bwd": cfg.n_layers * steps}
+    calls = cfg.n_layers * microbatches * steps
+    want = {"attn_fwd": per_layer * calls, "attn_bwd": calls}
     got = {name: launches[name] for name in want}
     if got != want:
         fail(f"{label}: attention kernel launches {got}, remat {cfg.remat!r} implies {want}")
@@ -663,10 +810,11 @@ def phase_moe(torch, drive, model, moe) -> dict:
     return launches
 
 
-def phase_distributed() -> None:
+def phase_distributed() -> dict:
     """Runs ``distributed_child`` in a process of its own, granted the card
     through the env (TPU_VISIBLE_DEVICES, exported to CUDA by the child's
-    ClaimEnv.apply_cuda_env before its first CUDA call)."""
+    ClaimEnv.apply_cuda_env before its first CUDA call).  Returns the
+    kernels' launches in the child's pipelined flagship steps."""
     import os
 
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -680,11 +828,21 @@ def phase_distributed() -> None:
                                capture_output=True, text=True, timeout=600)
     except subprocess.TimeoutExpired:
         fail("the distributed phase did not end within 600 s")
+    launches = None
     for line in child.stdout.splitlines():
-        log(line)
+        if line.startswith(PIPE_LAUNCHES):
+            launches = json.loads(line[len(PIPE_LAUNCHES):])
+        else:
+            log(line)
     if child.returncode != 0:
         fail(f"the distributed phase exited {child.returncode}:\n{child.stderr[-4000:]}")
+    if launches is None:
+        fail("the distributed phase reported no pipelined launches")
     log(f"distributed: child process took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+PIPE_LAUNCHES = "pipelined launches: "
 
 
 def distributed_child() -> int:
@@ -749,8 +907,151 @@ def distributed_child() -> int:
             f"after 1 and 2 steps {after} (tol 1e-3 of the loss)")
         del params, dparams, state, sstate
         torch.cuda.empty_cache()
+
+    from tpudra_torch.workload import attn_kernel, ce_kernel, opt_kernel, pipeline, ringattention
+
+    child_ring(torch, model, convert, ringattention, mesh3)
+    torch.cuda.empty_cache()
+    counters = {"ce_fwd": ce_kernel.ce_fwd, "adamw_step": opt_kernel.adamw_step,
+                "attn_fwd": attn_kernel.attn_fwd, "attn_bwd": attn_kernel.attn_bwd}
+    pmesh = envspec.mesh_from_devices(("pp", "dp", "tp"), (1, 1, 1))
+    launches = child_pipeline(torch, model, convert, pipeline, counters, pmesh)
+    torch.cuda.empty_cache()
+    child_pipeline_moe(torch, model, convert, pipeline, pmesh)
     dist.destroy_process_group()
+    print(PIPE_LAUNCHES + json.dumps(launches), flush=True)
     return 0
+
+
+def worst_leaf(torch, convert, got, want) -> float:
+    """The largest |got − want| of a gradient leaf over that leaf's max |want|."""
+    return max(float((g - w).abs().max()) / float(w.abs().max())
+               for g, w in zip(convert.tree_leaves(got), convert.tree_leaves(want)))
+
+
+def child_ring(torch, model, convert, ringattention, mesh3) -> None:
+    """The model with ring attention (ring_value_and_grad, one sp rank: the
+    diagonal block of every layer) on the (1, 1, 1) mesh, dense at the
+    flagship width with 2 layers, against the single-device step with naive
+    attention: loss within 1e-3 of itself, grads within 5e-2 of each leaf's
+    max (the ring keeps the probabilities in f32 where naive attention
+    rounds them to bf16 for p·v)."""
+    cfg = model.ModelConfig(**dict(FLAGSHIP, n_layers=2), attention="naive")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    params = model.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, cfg.max_seq), generator=gen, device="cuda")
+    loss, grads = model.value_and_grad(model.loss_fn)(params, tokens, cfg)
+    dparams = model.shard_params(params, mesh3, cfg)
+    dtokens = model.shard_batch(tokens, mesh3)
+    ring = ringattention.ring_value_and_grad(cfg, mesh3)
+    ring(dparams, dtokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_loss, r_grads = ring(dparams, dtokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    worst = worst_leaf(torch, convert, r_grads, grads)
+    if not (abs(float(r_loss) - float(loss)) <= 1e-3 * float(loss) and worst <= 5e-2):
+        fail(f"distributed (ring): loss {float(r_loss)} against {float(loss)}, worst grad leaf "
+             f"{worst} of its max")
+    log(f"distributed (ring, dense, 2 layers, batch {BATCH}, seq {cfg.max_seq}): "
+        f"ring_value_and_grad on (1, 1, 1) loss {float(r_loss):.6f}, single-device (naive) "
+        f"{float(loss):.6f}; worst grad leaf diff {worst:.3g} of its max (tol 5e-2); "
+        f"{ms:.1f} ms for the loss and grads")
+
+
+def child_pipeline(torch, model, convert, pipeline, counters, pmesh) -> dict:
+    """The pipelined step (pp = 1, PIPE_M microbatches) at the flagship
+    configuration of the bench step (splash, remat "dots"): loss and grads
+    against the single-device step's (loss 1e-3 of itself, grads 2e-2 of
+    each leaf's max: the weight gradients are summed over microbatches in
+    another order, and the embedding's backward adds with atomics), then 1
+    warm-up and TIMED_STEPS timed train steps with every kernel's launches
+    counted from 0.  Returns the launches."""
+    label = f"distributed (pipelined, pp 1, M {PIPE_M}, bench: splash, dots)"
+    cfg = model.ModelConfig(**FLAGSHIP, attention="splash")
+    check_attn_shape(label, cfg, BATCH // PIPE_M)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = model.init_params(gen, cfg)
+    n_params = sum(p.numel() for p in convert.tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab, (BATCH, cfg.max_seq), generator=gen, device="cuda")
+    loss, grads = model.value_and_grad(model.loss_fn)(params, tokens, cfg)
+    sparams = pipeline.stage_params(params, pmesh, cfg)
+    del params
+    p_loss, p_grads = pipeline.pipelined_value_and_grad(cfg, pmesh, PIPE_M)(sparams, tokens)
+    worst = worst_leaf(torch, convert, p_grads, grads)
+    del grads, p_grads
+    if not (abs(float(p_loss) - float(loss)) <= 1e-3 * float(loss) and worst <= 2e-2):
+        fail(f"{label}: loss {float(p_loss)} against {float(loss)}, worst grad leaf {worst}")
+    log(f"{label}: loss {float(p_loss):.6f}, single-device {float(loss):.6f}; worst grad leaf "
+        f"diff {worst:.3g} of its max (tol 2e-2)")
+
+    init, step = pipeline.make_pipelined_train_step(cfg, pmesh, PIPE_M)
+    state = init(sparams)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    sparams, state, first = step(sparams, state, tokens)
+    losses = [float(first)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        sparams, state, loss = step(sparams, state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    if not (all(math.isfinite(v) for v in losses) and abs(losses[0] - math.log(cfg.vocab)) <= 1.0):
+        fail(f"{label}: losses {losses}")
+    expect_attention_launches(label, cfg, launches, 1 + TIMED_STEPS, PIPE_M)
+    tokens_per_step = BATCH * (cfg.max_seq - 1)
+    flops = tokens_per_step * (6 * n_params + 12 * cfg.n_layers * cfg.max_seq * cfg.d_model)
+    log(f"{label}: losses {losses}; step_ms={step_s * 1e3:.2f} "
+        f"tokens_per_s={tokens_per_step / step_s:.0f} model_tflops_per_s="
+        f"{flops / step_s / 1e12:.1f} mfu_pct={flops / step_s / PEAK_BF16_FLOPS * 100:.1f} "
+        f"max_memory_allocated_gb={peak_gb:.2f}; launches over {1 + TIMED_STEPS} steps: {launches}")
+    phase_profile(torch, label, lambda: step(sparams, state, tokens), step_s * 1e3)
+    del sparams, state
+    return launches
+
+
+def child_pipeline_moe(torch, model, convert, pipeline, pmesh) -> None:
+    """The pipelined step at bench_moe's configuration (pp = 1, PIPE_M
+    microbatches, each routed alone) against the mean over microbatches of
+    the single-device loss_fn on each, which per-microbatch routing equals
+    at any capacity: loss within 1e-3 of itself, grads within 2e-2 of each
+    leaf's max (as the dense pipelined step)."""
+    label = f"distributed (pipelined MoE, pp 1, M {PIPE_M}, bench_moe)"
+    cfg = model.ModelConfig(**MOE, attention="splash")
+    mb = MOE_BATCH // PIPE_M
+    check_attn_shape(label, cfg, mb)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = model.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, cfg.max_seq), generator=gen, device="cuda")
+
+    def micro_mean(p, t):
+        return sum(model.loss_fn(p, t[i * mb:(i + 1) * mb], cfg) for i in range(PIPE_M)) / PIPE_M
+
+    loss, grads = model.value_and_grad(micro_mean)(params, tokens)
+    sparams = pipeline.stage_params(params, pmesh, cfg)
+    del params
+    vg = pipeline.pipelined_value_and_grad(cfg, pmesh, PIPE_M)
+    p_loss, p_grads = vg(sparams, tokens)
+    worst = worst_leaf(torch, convert, p_grads, grads)
+    del grads, p_grads
+    if not (abs(float(p_loss) - float(loss)) <= 1e-3 * float(loss) and worst <= 2e-2):
+        fail(f"{label}: loss {float(p_loss)} against {float(loss)}, worst grad leaf {worst}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vg(sparams, tokens)
+    torch.cuda.synchronize()
+    log(f"{label}: loss {float(p_loss):.6f}, mean of the microbatches' single-device losses "
+        f"{float(loss):.6f}; worst grad leaf diff {worst:.3g} of its max (tol 2e-2); "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms for the loss and grads")
 
 
 # Kernel-name fragments per category of the step's device time.
@@ -810,10 +1111,12 @@ def main() -> int:
         attn_kernel,
         ce_kernel,
         convert,
+        entry,
         envspec,
         model,
         moe,
         opt_kernel,
+        ringattention,
     )
 
     smi = subprocess.run(
@@ -868,7 +1171,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_runs = phase_moe(torch, drive, model, moe)
     torch.cuda.empty_cache()
-    phase_distributed()
+    phase_ring(torch, attn_kernel, ringattention)
+    torch.cuda.empty_cache()
+    phase_entry(torch, entry, convert)
+    torch.cuda.empty_cache()
+    pipe_runs = phase_distributed()
 
     # Each kernel's launches from the step that runs it.
     for k in kernels:
@@ -877,6 +1184,7 @@ def main() -> int:
         k["launches_per_step"] = k["launches"] / (1 + TIMED_STEPS)
         if k["name"] in moe_runs:
             k["moe_launches"] = moe_runs[k["name"]]
+        k["pipelined_launches"] = pipe_runs[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

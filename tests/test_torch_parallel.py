@@ -3,7 +3,8 @@ shard_params, make_sharded_train_step) and expert-parallel moe_ffn on a
 world of 8 gloo processes: the twins of tests/test_workload.py
 test_sharded_step_matches_single_device (:257),
 test_ep_sharded_matches_single_device (:528) and
-test_moe_transformer_trains_and_shards (:582).
+test_moe_transformer_trains_and_shards (:582); and the sharded step with a
+per-dp batch that tp does not divide, which the JAX package accepts.
 
 The ranks hold the (2, 2, 2) ("dp", "sp", "tp") sharded step against the
 single-device port step on the same params and tokens, which
@@ -11,6 +12,9 @@ tests/test_torch_model.py and tests/test_torch_moe.py hold against JAX.
 f32, so only the order of sums differs.  The world runs once per module
 (torch_gloo.run_world, killed past its timeout)."""
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from tpudra.workload import model as jm
@@ -111,3 +115,27 @@ def test_param_specs_mirror_jax(num_experts):
     dp, sp, tp = tm.batch_spec()
     assert (dp.dim, sp.dim, tp.is_replicate()) == (0, 1, True)
     assert tuple(jm.batch_spec()) == ("dp", "sp")
+
+
+@pytest.mark.parametrize("name", list(torch_gloo.RAGGED))
+def test_sharded_step_takes_a_batch_tp_does_not_divide(ranks, name):
+    """(1, 1, 2) with batch 1 and (2, 1, 2) with batch 6 (3 rows a dp
+    rank): the CE head shares the b·(S−1) rows over tp, the last share
+    ragged.  Loss and every gathered gradient leaf against the
+    single-device port step (1e-5), the loss against JAX's (1e-5), and the
+    params after one AdamW step as the other sharded steps are held."""
+    shape, batch = torch_gloo.RAGGED[name]
+    kw = torch_gloo.DENSE
+    params = jax.tree.map(jnp.asarray, torch_gloo.numpy_params(kw))
+    tokens = jnp.asarray(torch_gloo.numpy_tokens(kw, batch=batch).astype(np.int32))
+    want = float(jm.loss_fn(params, tokens, jm.ModelConfig(**kw)))
+    got_ranks = [r[name] for r in ranks if name in r]
+    assert len(got_ranks) == int(np.prod(shape))
+    for got in got_ranks:
+        sharded, single = got["loss"]
+        assert abs(sharded - single) <= 1e-5 * abs(single), (sharded, single)
+        assert abs(sharded - want) <= 1e-5 * abs(want), (sharded, want)
+        for leaf, err in got["grads"].items():
+            assert err <= 1e-5, (leaf, err)
+        for leaf, err in got["params"].items():
+            assert err <= torch_gloo.LR / 20, (leaf, err)

@@ -15,6 +15,7 @@ own process.
 
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import socket
@@ -173,9 +174,9 @@ def numpy_params(kw: dict, seed: int = 0) -> dict:
     return {**tree, "layers": layers, "ln_f": norm((D,))}
 
 
-def numpy_tokens(kw: dict, seed: int = 1) -> np.ndarray:
+def numpy_tokens(kw: dict, seed: int = 1, batch: int = BATCH) -> np.ndarray:
     rng = np.random.default_rng(seed)
-    return rng.integers(0, kw["vocab"], (BATCH, kw["max_seq"])).astype(np.int64)
+    return rng.integers(0, kw["vocab"], (batch, kw["max_seq"])).astype(np.int64)
 
 
 def _rel_errs(got: dict, want: dict) -> dict:
@@ -210,7 +211,7 @@ def _full(tree, specs, mesh):
     )
 
 
-def _sharded_against_single(kw: dict, mesh, steps: int) -> dict:
+def _sharded_against_single(kw: dict, mesh, steps: int, batch: int = BATCH) -> dict:
     """The (dp, sp, tp) sharded step against the single-device step on the
     same params and tokens: loss, each gradient leaf and each param after
     one AdamW step; then ``steps - 1`` more sharded steps' losses."""
@@ -219,7 +220,7 @@ def _sharded_against_single(kw: dict, mesh, steps: int) -> dict:
     from tpudra_torch.workload.parallel import local_tree
 
     cfg = tm.ModelConfig(**kw)
-    params_np, tokens = numpy_params(kw), torch.from_numpy(numpy_tokens(kw))
+    params_np, tokens = numpy_params(kw), torch.from_numpy(numpy_tokens(kw, batch=batch))
     single = params_from_numpy(params_np, device="cpu")
     loss, grads = tm.value_and_grad(tm.loss_fn)(single, tokens, cfg)
     init, step = tm.make_train_step(cfg, LR)
@@ -295,10 +296,15 @@ def _ep_moe_ffn(mesh) -> dict:
     }
 
 
+# Batches that tp does not divide per dp rank: (mesh shape, batch).
+RAGGED = {"1x1x2_b1": ((1, 1, 2), 1), "2x1x2_b6": ((2, 1, 2), 6)}
+
+
 def parallel(rank, world, port):
     """Everything the 8-rank tests check: the dense and MoE steps sharded
-    over a (2, 2, 2) mesh against the single-device step, and moe_ffn
-    expert-sharded over 4 ranks."""
+    over a (2, 2, 2) mesh against the single-device step, moe_ffn
+    expert-sharded over 4 ranks, and the dense step on the first 2 and 4
+    ranks with a per-dp batch that tp does not divide (RAGGED)."""
     from tpudra_torch.workload.envspec import mesh_from_devices
 
     _init(rank, world, port)
@@ -308,5 +314,197 @@ def parallel(rank, world, port):
         "moe": _sharded_against_single(MOE, mesh, steps=3),
         "ep": _ep_moe_ffn(mesh_from_devices(("rep", "ep"), (2, 4), device="cpu")),
     }
+    for name, (shape, batch) in RAGGED.items():
+        sub = mesh_from_devices(("dp", "sp", "tp"), shape, "cpu", n_ranks=math.prod(shape))
+        if sub.get_coordinate() is not None:
+            out[name] = _sharded_against_single(DENSE, sub, steps=1, batch=batch)
+    dist.destroy_process_group()
+    return out
+
+
+def _gather_full(tree, cfg, mesh, pp_axis=None):
+    """Whole tensors from each rank's local shards: the layer chunks
+    concatenated over ``pp_axis`` (stage order), every leaf param_specs
+    shards over tp concatenated over the mesh's "tp" dim."""
+    from tpudra_torch.workload import model as tm
+    from tpudra_torch.workload.convert import tree_map
+    from tpudra_torch.workload.parallel import _gather_dim, mesh_shape
+
+    def full(t, spec, stacked):
+        if pp_axis and stacked:
+            t = _gather_dim(t, mesh.get_group(pp_axis), 0)
+        if "tp" in mesh_shape(mesh) and spec[2].is_shard():
+            t = _gather_dim(t, mesh.get_group("tp"), spec[2].dim)
+        return t
+
+    specs = tm.param_specs(cfg)
+    stacked = tree_map(lambda _: False, specs)
+    stacked["layers"] = tree_map(lambda _: True, specs["layers"])
+    with torch.no_grad():
+        return tree_map(full, tree, specs, stacked)
+
+
+def _numpy_flat(tree) -> dict:
+    return {k: v.detach().numpy() for k, v in _flat(tree).items()}
+
+
+# -- ring attention (tests/test_torch_ringattention.py) -----------------------
+
+RING_QKV = (2, 32, 2, 8)  # [B, S, H, D], the JAX test's shape
+RING_LONG = (1, 1024, 2, 16)
+# The JAX composition test's model (test_workload.py:1003), and its MoE form
+# with a capacity (8 slots an expert for 64 tokens) that drops tokens.
+RING_DENSE = dict(vocab=64, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq=16,
+                  attention="naive", compute_dtype="f32")
+RING_MOE = dict(RING_DENSE, num_experts=4, moe_capacity_factor=0.5)
+RING_MESHES = {"dense": (RING_DENSE, (2, 4, 1)), "moe": (RING_MOE, (2, 2, 2))}
+
+
+def ring_inputs(shape=RING_QKV, seed: int = 0):
+    """q, k, v [B, S, H, D] and the weights w of the sum Σ w·out whose
+    gradients the tests compare."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
+
+
+def _ring_model(kw: dict, mesh) -> dict:
+    """ring_value_and_grad's loss and whole gradients, ring_loss_fn's loss
+    (global tokens), and the single-device port loss."""
+    from tpudra_torch.workload import model as tm
+    from tpudra_torch.workload.convert import params_from_numpy
+    from tpudra_torch.workload.parallel import local_tree
+    from tpudra_torch.workload.ringattention import ring_loss_fn, ring_value_and_grad
+
+    cfg = tm.ModelConfig(**kw)
+    params_np, tokens = numpy_params(kw), torch.from_numpy(numpy_tokens(kw))
+    dparams = tm.shard_params(params_from_numpy(params_np, device="cpu"), mesh, cfg)
+    loss, grads = ring_value_and_grad(cfg, mesh)(dparams, tm.shard_batch(tokens, mesh))
+    with torch.no_grad():
+        global_loss = ring_loss_fn(local_tree(dparams), tokens, cfg, mesh)
+        single = tm.loss_fn(params_from_numpy(params_np, device="cpu"), tokens, cfg)
+    return {"loss": float(loss), "ring_loss_fn": float(global_loss), "single": float(single),
+            "grads": _numpy_flat(_gather_full(grads, cfg, mesh))}
+
+
+def _errors(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def ring(rank, world, port):
+    """Ring attention over 8 ranks (its output block and the gradients of
+    Σ w·out, causal and not, and a bf16 run at seq 1024), and the model
+    with it on (dp, sp, tp) meshes; rank 0 also returns the error
+    messages."""
+    from tpudra_torch.workload import model as tm
+    from tpudra_torch.workload.convert import params_from_numpy
+    from tpudra_torch.workload.envspec import mesh_from_devices
+    from tpudra_torch.workload.ringattention import make_sharded_ring_attention, ring_loss_fn
+
+    _init(rank, world, port)
+    sp = mesh_from_devices(("sp",), device="cpu")
+    out = {}
+    q, k, v, w = (torch.from_numpy(a).chunk(world, 1)[rank] for a in ring_inputs())
+    for causal in (True, False):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = make_sharded_ring_attention(sp, "sp", causal=causal)(*qkv)
+        grads = torch.autograd.grad((o * w).sum(), qkv)
+        out[f"causal={causal}"] = [t.detach().numpy() for t in (o, *grads)]
+    x = torch.from_numpy(ring_inputs(RING_LONG)[0]).bfloat16().chunk(world, 1)[rank]
+    long = make_sharded_ring_attention(sp, "sp")(x, x, x)
+    out["long"] = (tuple(long.shape), bool(torch.isfinite(long.float()).all()))
+    for name, (kw, shape) in RING_MESHES.items():
+        out[name] = _ring_model(kw, mesh_from_devices(("dp", "sp", "tp"), shape, device="cpu"))
+
+    kw = dict(RING_DENSE, n_layers=1)
+    cfg = tm.ModelConfig(**kw)
+    params = params_from_numpy(numpy_params(kw), device="cpu")
+    tokens = torch.from_numpy(numpy_tokens(kw))
+    no_sp = mesh_from_devices(("dp",), device="cpu")
+    mesh = mesh_from_devices(("dp", "sp", "tp"), (2, 4, 1), device="cpu")
+    out["errors"] = [_errors(lambda: ring_loss_fn(params, tokens, cfg, no_sp)),
+                     _errors(lambda: ring_loss_fn(params, tokens[:, :14], cfg, mesh))]
+    dist.destroy_process_group()
+    return out
+
+
+# -- the pipeline (tests/test_torch_pipeline.py) ------------------------------
+
+# TestPipelineParallel's model (test_workload.py:380), the MoE pipeline's
+# (:630) and the combined program's (:408), each in f32; the combined one
+# with an aux weight, so that the aux's accounting over pp and dp shows.
+PIPE_DENSE = dict(vocab=64, d_model=32, n_heads=2, n_layers=4, d_ff=64, max_seq=16,
+                  compute_dtype="f32")
+PIPE_MOE = dict(vocab=32, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq=16, num_experts=2,
+                moe_capacity_factor=4.0, compute_dtype="f32")
+PIPE_COMBINED = dict(PIPE_DENSE, num_experts=2, moe_capacity_factor=8.0)
+# name: (config, mesh axes, mesh shape, batch, microbatches)
+PIPE_CASES = {
+    "dense": (PIPE_DENSE, ("pp", "dp"), (2, 2), 8, 4),
+    "moe": (PIPE_MOE, ("pp", "dp"), (2, 1), 4, 2),
+    "combined": (PIPE_COMBINED, ("pp", "dp", "tp"), (2, 2, 2), 8, 4),
+}
+
+
+def _pipelined(kw: dict, mesh, batch: int, M: int) -> dict:
+    """pipelined_backbone's rows of this rank and aux, and
+    pipelined_value_and_grad's loss and whole gradients."""
+    from tpudra_torch.workload import model as tm
+    from tpudra_torch.workload.convert import params_from_numpy
+    from tpudra_torch.workload.pipeline import (
+        pipelined_backbone,
+        pipelined_value_and_grad,
+        stage_params,
+    )
+
+    cfg = tm.ModelConfig(**kw)
+    params_np, tokens = numpy_params(kw), torch.from_numpy(numpy_tokens(kw, batch=batch))
+    params = stage_params(params_from_numpy(params_np, device="cpu"), mesh, cfg)
+    with torch.no_grad():
+        x, aux = pipelined_backbone(params, tokens, cfg, mesh, M)
+    loss, grads = pipelined_value_and_grad(cfg, mesh, M)(params, tokens)
+    return {"x": x.numpy(), "aux": float(aux), "loss": float(loss),
+            "dp_rank": dist.get_rank(mesh.get_group("dp")),
+            "grads": _numpy_flat(_gather_full(grads, cfg, mesh, pp_axis="pp"))}
+
+
+def pipeline(rank, world, port):
+    """The pipelined backbone, loss and gradients of PIPE_CASES, each on its
+    mesh over the first ranks, and the up-front errors."""
+    from tpudra_torch.workload import model as tm
+    from tpudra_torch.workload.convert import params_from_numpy
+    from tpudra_torch.workload.envspec import mesh_from_devices
+    from tpudra_torch.workload.pipeline import pipelined_backbone, split_layers, stage_params
+
+    _init(rank, world, port)
+    cpu = torch.device("cpu")
+    out = {}
+    for name, (kw, axes, shape, batch, M) in PIPE_CASES.items():
+        mesh = mesh_from_devices(axes, shape, cpu, n_ranks=math.prod(shape))
+        if mesh.get_coordinate() is not None:
+            out[name] = _pipelined(kw, mesh, batch, M)
+
+    kw = PIPE_DENSE
+    cfg = tm.ModelConfig(**kw)
+    full = params_from_numpy(numpy_params(kw), device="cpu")
+    tokens = torch.from_numpy(numpy_tokens(kw, batch=8))
+    no_dp = mesh_from_devices(("pp",), (2,), cpu, n_ranks=2)
+    mesh = mesh_from_devices(("pp", "dp"), (2, 2), cpu, n_ranks=4)
+    if rank < 2:
+        params = stage_params(full, no_dp, cfg)
+        with torch.no_grad():
+            x, _ = pipelined_backbone(params, tokens, cfg, no_dp, 4, dp_axis=None)
+        out["errors"] = {
+            "no_dp": _errors(lambda: pipelined_backbone(params, tokens, cfg, no_dp, 4)),
+            "nope": _errors(lambda: pipelined_backbone(params, tokens, cfg, mesh, 4,
+                                                       pp_axis="nope")),
+            "dp_split": _errors(lambda: pipelined_backbone(params, tokens, cfg, mesh, 8)),
+            "layers": _errors(lambda: split_layers(full["layers"], 3)),
+            "microbatches": _errors(lambda: pipelined_backbone(params, tokens, cfg, mesh, 3)),
+        }
+        out["no_dp_shape"] = tuple(x.shape)
     dist.destroy_process_group()
     return out

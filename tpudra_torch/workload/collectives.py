@@ -27,7 +27,12 @@ import torch
 import torch.distributed as dist
 
 from tpudra_torch.workload.device import resolve_device
-from tpudra_torch.workload.parallel import all_gather_into, reduce_scatter_into, size_and_rank
+from tpudra_torch.workload.parallel import (
+    all_gather_into,
+    reduce_scatter_into,
+    ring_shift,
+    size_and_rank,
+)
 
 
 @dataclass
@@ -69,15 +74,9 @@ def _all_gather(x, group):
 
 
 def _ppermute_ring(x, group):
-    n, r = size_and_rank(group)
-    out = torch.empty_like(x)
-    if n == 1:  # the ring of one rank: the identity, as ppermute's
-        return out.copy_(x)
-    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + 1) % n), group),
-           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - 1) % n), group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
+    if size_and_rank(group)[0] == 1:  # the ring of one rank: the identity, as ppermute's
+        return x.clone()
+    return ring_shift(x, group, 1)
 
 
 def _reduce_scatter(x, group):

@@ -373,28 +373,30 @@ def mesh_from_devices(
     axis_names: tuple[str, ...] = ("data",),
     axis_shape: Optional[tuple[int, ...]] = None,
     device=None,
+    n_ranks: Optional[int] = None,
 ):
-    """A ``DeviceMesh`` with named dims over the process group's ranks (one
-    GPU each), on ``device``'s type (default CUDA; the CPU only when
-    asked).  Default: one flat dim over every rank; ``axis_shape`` factors
-    the world into named dims (dp/sp/tp/...), the last one innermost.  With
-    no process group up, a one-rank group is started first (NCCL on CUDA,
-    gloo on the CPU)."""
+    """A ``DeviceMesh`` with named dims over the process group's first
+    ``n_ranks`` ranks (default every rank; one GPU each), on ``device``'s
+    type (default CUDA; the CPU only when asked).  Default: one flat dim;
+    ``axis_shape`` factors the ranks into named dims (dp/sp/tp/...), the
+    last one innermost.  Every rank of the world calls this; a rank past
+    ``n_ranks`` gets no coordinate.  With no process group up, a one-rank
+    group is started first (NCCL on CUDA, gloo on the CPU)."""
     dev = resolve_device(device)
+    import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh
 
-    n = dist.get_world_size() if dist.is_initialized() else 1
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if n_ranks is None else n_ranks
     if axis_shape is None:
         axis_shape = (n,)
         if len(axis_names) != 1:
             raise ValueError("axis_shape required for multi-axis meshes")
-    if math.prod(axis_shape) != n:
-        raise ValueError(f"axis_shape {axis_shape} != {n} devices")
+    if math.prod(axis_shape) != n or n > world:
+        raise ValueError(f"axis_shape {axis_shape} != {n} of {world} devices")
     if not dist.is_initialized():
         if dev.type == "cuda":
-            import torch
-
             # The device the mesh binds, chosen before it is built (else the
             # mesh guesses it from the rank and warns).
             torch.cuda.set_device(torch.cuda.current_device())
@@ -402,7 +404,8 @@ def mesh_from_devices(
             "nccl" if dev.type == "cuda" else "gloo",
             store=dist.HashStore(), rank=0, world_size=1,
         )
-    return init_device_mesh(dev.type, tuple(axis_shape), mesh_dim_names=tuple(axis_names))
+    return DeviceMesh(dev.type, torch.arange(n).reshape(axis_shape),
+                      mesh_dim_names=tuple(axis_names))
 
 
 def factor_devices(n: int, axes: int = 3) -> tuple[int, ...]:

@@ -17,7 +17,8 @@ attention, and the same models sharded over a ("dp", "sp", "tp") device
 mesh (``param_specs``, ``shard_params``, ``make_sharded_train_step``): each
 rank computes on its local shards with the collectives of
 ``tpudra_torch.workload.parallel`` placed by hand where GSPMD places them
-in the JAX program.  Ring attention and the pipeline are not ported yet.
+in the JAX program.  Ring attention (``ringattention``) plugs into ``_layer``
+through ``attn_fn``, as in the JAX package; the pipeline is ``pipeline``.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from tpudra_torch.workload.parallel import (
     gather,
     local_tree,
     reduce_from,
-    split,
+    size_and_rank,
 )
 
 
@@ -195,9 +196,13 @@ def _moe_config(cfg: ModelConfig) -> MoEConfig:
                      capacity_factor=cfg.moe_capacity_factor, compute_dtype=cfg.compute_dtype)
 
 
-def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None):
+def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None, attn_fn=None):
     """One decoder block; x: [B, S, D] in cfg.act_dtype.  Returns (x, aux),
     aux being the MoE load-balancing loss (zero for a dense layer).
+
+    ``attn_fn`` overrides the attention core: (q, k, v) each [B, H, S, hd],
+    q not scaled, → [B, H, S, hd] (ring attention plugs in here); its
+    output is cast to the activation dtype, as in JAX.
 
     Every projection is a 2-D product over the flattened [B*S] rows (an
     ``aten.mm``, what the "dots" remat policy keeps); attention's products
@@ -208,7 +213,8 @@ def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None):
     With ``groups``, the params are this rank's shards (Megatron: qkv and
     w1 column-parallel, wo and w2 row-parallel, the experts split over tp)
     and x is the same on every tp rank: f before each column-parallel
-    product, g after each row-parallel one.
+    product, g after each row-parallel one.  An MoE layer routes its tokens
+    over ``groups.dp`` and, where the sequence is sharded, ``groups.sp``.
     """
     B, S, D = x.shape
     hd = cfg.head_dim
@@ -222,7 +228,9 @@ def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None):
     wqkv = p["wqkv"].to(act).reshape(D, H * 3 * hd)
     qkv = (h.reshape(B * S, D) @ wqkv).view(B, S, H, 3, hd).permute(3, 0, 2, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # each [B, H, S, hd]
-    if cfg.use_flash_attention(S, x.device):
+    if attn_fn is not None:
+        attn = attn_fn(q, k, v).to(act)
+    elif cfg.use_flash_attention(S, x.device):
         # q scaled in the activation dtype before the kernel, as the JAX
         # model scales it before splash.
         attn = flash_attention(q * (hd ** -0.5), k, v)
@@ -242,7 +250,8 @@ def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None):
     if cfg.num_experts:
         moe_params = {k: p[k] for k in ("router", "w1", "w2")}
         ffn, aux = moe_ffn(moe_params, h, _moe_config(cfg), ep_group=tp,
-                           token_group=groups.dp if groups else None)
+                           token_group=groups.dp if groups else None,
+                           seq_group=groups.sp if groups else None)
         return x + ffn, aux
     h = copy_to(h, tp).reshape(B * S, D) @ p["w1"].to(act)
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
@@ -250,12 +259,14 @@ def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None):
     return x + h.view(B, S, D), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig, groups: Groups | None = None):
-    """tokens [B, S] int → embedded inputs [B, S, D] in cfg.act_dtype.  A
+def embed_tokens(params, tokens, cfg: ModelConfig, groups: Groups | None = None,
+                 pos_offset: int = 0):
+    """tokens [B, S] int → embedded inputs [B, S, D] in cfg.act_dtype, the
+    tokens at positions ``pos_offset`` on (a block of a longer sequence).  A
     D-sharded table gives this rank's slice of D, gathered over tp."""
     S = tokens.shape[1]
     x = params["embed"][tokens].to(cfg.act_dtype)
-    x = x + params["pos"][:S].to(cfg.act_dtype)[None]
+    x = x + params["pos"][pos_offset:pos_offset + S].to(cfg.act_dtype)[None]
     return gather(x, groups.tp if groups else None, dim=2, partial_grads=False)
 
 
@@ -269,10 +280,10 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def remat_layer_body(cfg: ModelConfig, groups: Groups | None = None):
+def remat_layer_body(cfg: ModelConfig, groups: Groups | None = None, attn_fn=None):
     """The per-layer body ``(x, layer_params) -> (x, aux)`` with cfg.remat
-    applied."""
-    layer_body = partial(_layer, cfg, groups=groups)
+    applied (shared by the layer loop and the pipeline's stages)."""
+    layer_body = partial(_layer, cfg, groups=groups, attn_fn=attn_fn)
     if cfg.remat == "none":
         return layer_body
     if cfg.remat == "full":
@@ -283,11 +294,13 @@ def remat_layer_body(cfg: ModelConfig, groups: Groups | None = None):
     )
 
 
-def backbone_and_aux(params, tokens, cfg: ModelConfig, groups: Groups | None = None):
-    """tokens [B, S] int → (hidden states [B, S, D] in cfg.act_dtype, mean
-    per-layer MoE aux loss — zero for dense models)."""
-    x = embed_tokens(params, tokens, cfg, groups)
-    layer = remat_layer_body(cfg, groups)
+def backbone_and_aux(params, tokens, cfg: ModelConfig, groups: Groups | None = None,
+                     attn_fn=None, pos_offset: int = 0):
+    """tokens [B, S] int (at positions ``pos_offset`` on) → (hidden states
+    [B, S, D] in cfg.act_dtype, mean per-layer MoE aux loss — zero for dense
+    models)."""
+    x = embed_tokens(params, tokens, cfg, groups, pos_offset)
+    layer = remat_layer_body(cfg, groups, attn_fn)
     # unbind (not indexing) so the backward stacks the per-layer grads once.
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
     auxs = []
@@ -308,11 +321,12 @@ def forward(params, tokens, cfg: ModelConfig):
     return matmul_f32(x, params["embed"].to(cfg.act_dtype).t())
 
 
-def loss_fn(params, tokens, cfg: ModelConfig, groups: Groups | None = None):
+def loss_fn(params, tokens, cfg: ModelConfig, groups: Groups | None = None, attn_fn=None):
     """Next-token NLL over tokens [B, S]: the whole sequence goes through
     the backbone and the shift happens at the loss.  With ``groups``: this
-    rank's shards, and the tokens of its dp shard (whole sequences)."""
-    x, aux = backbone_and_aux(params, tokens, cfg, groups)
+    rank's shards, and the tokens of its dp shard (whole sequences).
+    ``attn_fn``: see ``_layer``."""
+    x, aux = backbone_and_aux(params, tokens, cfg, groups, attn_fn)
     loss = ce_head(params, x, tokens, cfg, groups)
     if cfg.num_experts:
         loss = loss + cfg.moe_aux_weight * aux
@@ -324,24 +338,51 @@ def ce_head(params, x, tokens, cfg: ModelConfig, groups: Groups | None = None):
     the sequence (logits in f32 per chunk, reduced to logsumexp - target
     logit at once) or fused (ce_kernel).
 
-    Over tp, the D-sharded ``embed`` is gathered (its gradient
-    reduce-scattered) and each rank takes an equal share of the batch rows,
-    rather than each computing [B, S, V] logits for a slice of D and
-    all-reducing them; the sums meet in one all-reduce."""
+    Over tp, see ``ce_rows_sum``."""
     xs, targets = x[:, :-1], tokens[:, 1:]
     B, Sm1, _ = xs.shape
+    return ce_rows_sum(params, xs, targets, cfg, groups.tp if groups else None) / (B * Sm1)
+
+
+def ce_rows_sum(params, xs, targets, cfg: ModelConfig, tp=None):
+    """Σ (logsumexp − target logit) over the rows of xs [b, s, D] against
+    targets [b, s], summed over ``tp``.
+
+    Over tp, the D-sharded ``embed`` is gathered (its gradient
+    reduce-scattered) and each rank takes its share of the b·s rows
+    (``_row_share``), rather than each computing [b, s, V] logits for a
+    slice of D and all-reducing them; the sums meet in one all-reduce.  xs
+    is the same on every tp rank: f (``copy_to``) sums the gradients of the
+    shares, each zero off its own rows."""
     embed = params["embed"]
-    tp = groups.tp if groups else None
     if tp is not None:
         embed = gather(embed, tp, dim=1, partial_grads=True)
-        xs, targets = split(xs, tp, dim=0), split(targets, tp, dim=0)
-    return reduce_from(_ce_sum(embed, xs, targets, cfg), tp) / (B * Sm1)
+        xs, targets = _row_share(copy_to(xs, tp), targets, tp)
+    return reduce_from(_ce_sum(embed, xs, targets, cfg), tp)
+
+
+def _row_share(xs, targets, group):
+    """This rank's share of the rows of xs [b, s, D] and targets [b, s]:
+    of n ranks, rank r takes rows [r·c, (r+1)·c) of the flattened b·s, c =
+    ceil(b·s / n), cut at b·s (the last shares ragged, possibly empty), as
+    [1, rows, D] and [1, rows].  One rank takes them all as they are."""
+    n, r = size_and_rank(group)
+    if n == 1:
+        return xs, targets
+    b, s, D = xs.shape
+    rows = b * s
+    share = -(-rows // n)
+    lo, hi = min(r * share, rows), min((r + 1) * share, rows)
+    return xs.reshape(1, rows, D)[:, lo:hi], targets.reshape(1, rows)[:, lo:hi]
 
 
 def _ce_sum(embed, xs, targets, cfg: ModelConfig):
-    """Σ (logsumexp − target logit) over the rows of xs [b, s, D]."""
+    """Σ (logsumexp − target logit) over the rows of xs [b, s, D].  No rows
+    give 0 through the chunked path, so that the gradients still reach
+    ``embed`` and ``xs`` (the collectives of their backward run on every
+    rank)."""
     b, s, D = xs.shape
-    if cfg.ce_impl == "fused":
+    if cfg.ce_impl == "fused" and b * s:
         return fused_ce_sum(
             xs.reshape(b * s, D), embed, targets.reshape(-1).to(torch.int32), b * s
         )
@@ -360,7 +401,7 @@ def _ce_sum(embed, xs, targets, cfg: ModelConfig):
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + ce_sum(xs[:, sl], targets[:, sl])
-    if s % chunk:
+    if s % chunk or not s:
         total = total + ce_sum(xs[:, n * chunk:], targets[:, n * chunk:])
     return total
 
@@ -499,11 +540,13 @@ def sharded_value_and_grad(cfg: ModelConfig, mesh):
     """``fn(dparams, dtokens) -> (loss, grads)`` for the model sharded over
     ``mesh``: the loss of the global batch, and this rank's local shard of
     each gradient, averaged over dp."""
-    groups = Groups.from_mesh(mesh)
+    sp = mesh.get_group("sp") if "sp" in mesh.mesh_dim_names else None
+    # The whole sequence on every sp rank: the model runs unsharded over sp.
+    groups = Groups.from_mesh(mesh, ("dp", "tp"))
     grad_fn = value_and_grad(loss_fn)
 
     def wrapped(dparams, dtokens):
-        tokens = gather(dtokens.to_local(), groups.sp, dim=1, partial_grads=False)
+        tokens = gather(dtokens.to_local(), sp, dim=1, partial_grads=False)
         loss, grads = grad_fn(local_tree(dparams), tokens, cfg, groups)
         with torch.no_grad():
             mean = partial(mean_over, group=groups.dp)

@@ -16,7 +16,10 @@ summed over the group.  With ``token_group`` the tokens are sharded over
 that group (data parallel) and routing is still global, as in the JAX
 program, which routes the global batch: capacity counts every rank's
 tokens, a token's slot counts the tokens of lower ranks before it, and the
-load-balancing fractions are means over all ranks.
+load-balancing fractions are means over all ranks.  With ``seq_group`` too
+(ring attention: each rank holds one block of every sequence of its dp
+shard) the global order is (dp rank, row, sequence block): a token's slot
+counts the tokens of every earlier (rank, row, block) before it.
 """
 
 from __future__ import annotations
@@ -82,16 +85,17 @@ def expert_specs():
     return {"router": (Replicate(),), "w1": (Shard(0),), "w2": (Shard(0),)}
 
 
-def moe_ffn(params, x, cfg: MoEConfig, ep_group=None, token_group=None):
+def moe_ffn(params, x, cfg: MoEConfig, ep_group=None, token_group=None, seq_group=None):
     """x [B, S, D] -> (y [B, S, D] in x's dtype, aux); top-1 routed expert
     FFN and the Switch load-balancing loss (E · Σ fraction routed · mean
-    router prob, per expert).  ``ep_group``/``token_group``: see the module
-    docstring; None for one device."""
+    router prob, per expert).  ``ep_group``/``token_group``/``seq_group``:
+    see the module docstring; None for one device."""
     B, S, D = x.shape
     E = cfg.num_experts
     T = B * S
     n_tok, tok_rank = size_and_rank(token_group)
-    C = cfg.capacity(T * n_tok)
+    n_seq, _ = size_and_rank(seq_group)
+    C = cfg.capacity(T * n_tok * n_seq)
     n_ep, ep_rank = size_and_rank(ep_group)
     E_local = params["w1"].shape[0]
     if E_local * n_ep != E:
@@ -106,14 +110,8 @@ def moe_ffn(params, x, cfg: MoEConfig, ep_group=None, token_group=None):
     # By comparison: F.one_hot checks its indices on the host, a device sync
     # each call.
     onehot = (expert[:, None] == torch.arange(E, device=x.device)).float()  # [T, E]
-    # Position of each token within its expert's queue; >= C drops.  The
-    # running count is a scan along the inner dim of [E, T]: along the outer
-    # dim of [T, E] the scan has only E columns to spread over the card
-    # (1.3 ms a call at T = 8192 on an H100).
-    position = (onehot.t().contiguous().cumsum(1).t() - onehot) * onehot
-    if token_group is not None:
-        counts = gather(onehot.sum(0)[None], token_group, 0, partial_grads=False)  # [n_tok, E]
-        position = position + counts[:tok_rank].sum(0) * onehot
+    # Position of each token within its expert's queue; >= C drops.
+    position = _position(onehot.view(B, S, E), token_group, seq_group).reshape(T, E)
     keep = (position < C) * onehot
     # The slot's one-hot: a slot >= C (an overflowing token) gives a zero
     # row, as jax.nn.one_hot does; F.one_hot would raise.
@@ -139,13 +137,31 @@ def moe_ffn(params, x, cfg: MoEConfig, ep_group=None, token_group=None):
     y = combine.reshape(T, E_local * C) @ expert_out.reshape(E_local * C, D)
     y = reduce_from(y, ep_group)
 
-    frac_tokens = onehot.mean(0)
-    frac_probs = probs.mean(0)
-    if token_group is not None:
-        frac_tokens = mean_over(frac_tokens, token_group)
-        frac_probs = mean_over(frac_probs, token_group)
+    frac_tokens = mean_over(mean_over(onehot.mean(0), token_group), seq_group)
+    frac_probs = mean_over(mean_over(probs.mean(0), token_group), seq_group)
     aux = E * (frac_tokens * frac_probs).sum()
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _position(onehot, token_group, seq_group):
+    """Each token's place in its expert's queue, for onehot [b, s, E] this
+    rank's block of its dp shard's rows, in the global order (dp rank, row,
+    sequence block): its place within its (row, block), plus the counts of
+    every earlier (dp rank, row, block), gathered over sp and dp.  With no
+    groups: the running count over the flattened b·s tokens."""
+    b, s, E = onehot.shape
+    # The running count is a scan along the inner dim of [b, E, s]: along
+    # the outer dim of [b·s, E] the scan has only E columns to spread over
+    # the card (1.3 ms a call at b·s = 8192 on an H100).
+    inner = (onehot.transpose(1, 2).contiguous().cumsum(2).transpose(1, 2) - onehot) * onehot
+    n_tok, tok_rank = size_and_rank(token_group)
+    n_seq, seq_rank = size_and_rank(seq_group)
+    counts = onehot.sum(1)[None]  # [1, b, E]: this (row, block)'s counts
+    counts = gather(counts, seq_group, 0, partial_grads=False)  # [n_seq, b, E]
+    counts = gather(counts[None], token_group, 0, partial_grads=False)  # [n_tok, n_seq, b, E]
+    order = counts.permute(0, 2, 1, 3).reshape(-1, E)  # (dp rank, row, block)
+    before = (order.cumsum(0) - order).view(n_tok, b, n_seq, E)[tok_rank, :, seq_rank]
+    return inner + before[:, None, :] * onehot
 
 
 def shard_moe_params(params, mesh, ep_axis: str = "ep"):

@@ -1,5 +1,5 @@
-"""The process groups of a ("dp", "sp", "tp") layout, and the autograd-aware
-collectives that run the model on local shards.
+"""The process groups of a ("dp", "sp", "tp") or ("pp", "dp"[, "tp"]) layout,
+and the autograd-aware collectives that run the model on local shards.
 
 The JAX package writes the model once and lets GSPMD partition it.  The port
 runs each rank's share of the same math on plain local tensors (the flash
@@ -16,9 +16,11 @@ Megatron's form:
                    gather, so each holds the whole gradient) or a
                    reduce-scatter (each rank computed on its own share of
                    the rows, so each holds a part of it);
-- ``split``:       this rank's slice forward, all-gather backward;
 - ``mean_over``:   all-reduce mean both ways (a statistic every rank needs
-                   over all ranks' tokens, such as the MoE load fractions).
+                   over all ranks' tokens, such as the MoE load fractions);
+- ``ppermute``:    each rank's tensor to the next rank of a ring forward, the
+                   gradient back to the previous one (ring attention's
+                   rotation, the pipeline's stage-to-stage hand-over).
 
 Every op is the identity when its group is None: the single-device model is
 the same code with no groups.
@@ -40,16 +42,27 @@ class Groups:
     for one device with no mesh.
 
     dp: token batch sharded, params replicated (gradients averaged over it);
-    sp: the sequence of the batch sharded (gathered before the model);
-    tp: params sharded in the Megatron layout, experts sharded (MoE)."""
+    sp: the sequence sharded inside the model (ring attention's blocks; the
+        plain sharded step gathers the sequence and runs the model without);
+    tp: params sharded in the Megatron layout, experts sharded (MoE);
+    pp: the layer stack split into pipeline stages."""
 
     dp: Optional[dist.ProcessGroup] = None
     sp: Optional[dist.ProcessGroup] = None
     tp: Optional[dist.ProcessGroup] = None
+    pp: Optional[dist.ProcessGroup] = None
 
     @classmethod
-    def from_mesh(cls, mesh) -> "Groups":
-        return cls(**{name: mesh.get_group(name) for name in ("dp", "sp", "tp")})
+    def from_mesh(cls, mesh, axes: tuple[str, ...]) -> "Groups":
+        """The groups of those of ``axes`` that ``mesh`` has, by name; None
+        for the rest.  Each step names the axes its model runs over."""
+        return cls(**{name: mesh.get_group(name) for name in axes
+                      if name in mesh.mesh_dim_names})
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{dim name: size} of a ``DeviceMesh``, as jax's ``mesh.shape``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def size_and_rank(group) -> tuple[int, int]:
@@ -106,6 +119,19 @@ def _reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
+def ring_shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Rank r's ``x`` at rank r + shift (mod n) of ``group``'s ring (more
+    than one rank): one send and one receive each, batched."""
+    n, r = size_and_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - shift) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -140,17 +166,6 @@ class _Gather(torch.autograd.Function):
         return _slice_dim(g, ctx.group, ctx.dim), None, None, None
 
 
-class _Split(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _slice_dim(x, group, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _gather_dim(g, ctx.group, ctx.dim), None, None
-
-
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -160,6 +175,17 @@ class _MeanOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g, ctx.group) / dist.get_world_size(ctx.group), None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return ring_shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift(g, ctx.group, -ctx.shift), None, None
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -179,14 +205,19 @@ def gather(x: torch.Tensor, group, dim: int, partial_grads: bool) -> torch.Tenso
     return x if group is None else _Gather.apply(x, group, dim, partial_grads)
 
 
-def split(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """This rank's equal slice of ``x`` along ``dim``; the gradient gathered."""
-    return x if group is None else _Split.apply(x, group, dim)
-
-
 def mean_over(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``x`` over ``group``, both ways (the gradient too)."""
     return x if group is None else _MeanOver.apply(x, group)
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` over the ring of ``group``: rank r's ``x`` arrives at
+    rank r + shift (mod n); the gradient goes back by -shift.  A group of
+    one is the identity.  Every rank of the group must call it in the same
+    order, and so must the backward: ranks that build the same graph do."""
+    if group is None or size_and_rank(group)[0] == 1:
+        return x
+    return _PPermute.apply(x, group, shift)
 
 
 def distribute_local(full: torch.Tensor, mesh, placements):
