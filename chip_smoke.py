@@ -55,6 +55,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               microbatches at the flagship configuration (1 warm-up and 3
               timed steps, with its attention launches) and at bench_moe's,
               each against the single-device step
+ 12. rank:    the multi-host rank worker (tpudra_torch.sim.multihost) in a
+              child process granted the card through a one-host
+              ComputeDomain grant env (one_host_grant: the CD plugin's keys,
+              TPU_VISIBLE_DEVICES, a traceparent, tracing on): the card it
+              sees must be the granted one (its UUID against nvidia-smi's
+              for the granted index); a one-rank NCCL group, the all-reduce
+              on the card and its RESULT line (8.0, devices 1, mesh 1,1,1);
+              exactly one rank.worker span in the trace log, parented on the
+              grant's traceparent, from the child's pid; the seconds from
+              spawn to RESULT and of init_process_group.  The gang itself
+              (many ranks, the coordinator proxy) runs only on the CPU
+              (tools/torch_multihost.py): NCCL takes one GPU per rank.
 Each step phase sets every kernel's launch count to 0 just before it and
 reads the counts just after.
 
@@ -66,6 +78,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -810,17 +824,21 @@ def phase_moe(torch, drive, model, moe) -> dict:
     return launches
 
 
+def granted_index() -> int:
+    """The index of the card this run holds, which a child process is
+    granted: the first of CUDA_VISIBLE_DEVICES, else 0."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    if not visible.isdigit():
+        fail(f"CUDA_VISIBLE_DEVICES={visible!r} names no device index to grant")
+    return int(visible)
+
+
 def phase_distributed() -> dict:
     """Runs ``distributed_child`` in a process of its own, granted the card
     through the env (TPU_VISIBLE_DEVICES, exported to CUDA by the child's
     ClaimEnv.apply_cuda_env before its first CUDA call).  Returns the
     kernels' launches in the child's pipelined flagship steps."""
-    import os
-
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-    if not visible.isdigit():
-        fail(f"CUDA_VISIBLE_DEVICES={visible!r} names no device index to grant")
-    env = dict(os.environ, TPU_VISIBLE_DEVICES=visible, TPUDRA_CHIP_COORDS="0,0,0")
+    env = dict(os.environ, TPU_VISIBLE_DEVICES=str(granted_index()), TPUDRA_CHIP_COORDS="0,0,0")
     env.pop("CUDA_VISIBLE_DEVICES", None)
     t0 = time.perf_counter()
     try:
@@ -920,6 +938,143 @@ def distributed_child() -> int:
     child_pipeline_moe(torch, model, convert, pipeline, pmesh)
     dist.destroy_process_group()
     print(PIPE_LAUNCHES + json.dumps(launches), flush=True)
+    return 0
+
+
+RANK_RESULT = "RESULT gang-psum: 8.0 host 0 devices 1 mesh 1,1,1"
+RANK_TIMES = "rank times: "
+UUID = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
+
+
+def one_host_grant(index: int, workdir: str) -> dict:
+    """The env of a one-host ComputeDomain grant of card ``index``: the keys
+    the CD plugin writes (tpudra/cdplugin/state.py and libtpuenv.py), for a
+    slice of one host with a one-chip block; the chip claim's
+    TPU_VISIBLE_DEVICES; the bind's traceparent; and tracing switched on
+    into ``workdir``/trace.jsonl.  ``workdir`` stands for the per-domain
+    dir that the grant mounts."""
+    from tpudra_torch import trace
+
+    return {
+        "TPUDRA_DOMAIN_UID": "chip-smoke-uid",
+        "TPUDRA_DOMAIN_CHANNELS": "0",
+        "TPUDRA_NUM_HOSTS": "1",
+        "TPUDRA_HOST_INDEX": "0",
+        "TPUDRA_CLIQUE_ID": "chip-smoke-slice.0",
+        "TPUDRA_COORDINATOR": "compute-domain-daemon-0000:7175",
+        "TPUDRA_CD_DIR": workdir,
+        trace.TRACEPARENT_ENV: trace.format_traceparent(os.urandom(16).hex(), os.urandom(8).hex()),
+        "TPUDRA_HOST_COORDS": "0,0,0",
+        "TPUDRA_MESH_SHAPE": "1,1,1",
+        "TPU_CHIPS_PER_HOST_BOUNDS": "1,1,1",
+        "TPU_HOST_BOUNDS": "1,1,1",
+        "TPU_SKIP_MDS_QUERY": "true",
+        "TPU_WORKER_HOSTNAMES": "compute-domain-daemon-0000",
+        "TPU_WORKER_ID": "0",
+        "TPU_VISIBLE_DEVICES": str(index),
+        trace.ENV_TRACE: "1",
+        trace.ENV_TRACE_LOG: os.path.join(workdir, "trace.jsonl"),
+    }
+
+
+def phase_rank(card: str) -> None:
+    """Runs ``rank_child`` in a process of its own under a one-host grant of
+    this run's card, and checks its RESULT line and its one rank.worker
+    span."""
+    import tempfile
+    import threading
+
+    from tpudra_torch import trace
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rank-") as workdir:
+        grant = one_host_grant(granted_index(), workdir)
+        # nvidia-smi numbers the cards in PCI bus order; so does CUDA here.
+        env = dict(os.environ, **grant, CUDA_DEVICE_ORDER="PCI_BUS_ID")
+        env.pop("CUDA_VISIBLE_DEVICES", None)
+        err_path = os.path.join(workdir, "stderr.txt")
+        lines, result_s = [], None
+        with open(err_path, "w") as err:
+            t0 = time.perf_counter()
+            child = subprocess.Popen([sys.executable, __file__, "--rank"], env=env,
+                                     stdout=subprocess.PIPE, stderr=err, text=True)
+            watchdog = threading.Timer(300, child.kill)
+            watchdog.start()
+            for line in child.stdout:
+                if line.startswith("RESULT gang-psum:") and result_s is None:
+                    result_s = time.perf_counter() - t0
+                lines.append(line.rstrip("\n"))
+            rc = child.wait()
+            watchdog.cancel()
+        with open(err_path) as f:
+            stderr = f.read()
+        log_path = grant[trace.ENV_TRACE_LOG]
+        spans = []
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                spans = [json.loads(line) for line in f if line.strip()]
+    if rc != 0:
+        fail(f"the rank phase exited {rc} (killed past 300 s if -9):\n" + "\n".join(lines)
+             + f"\n{stderr[-4000:]}")
+    times = [json.loads(line[len(RANK_TIMES):]) for line in lines if line.startswith(RANK_TIMES)]
+    if RANK_RESULT not in lines or len(times) != 1:
+        fail(f"the rank phase printed no {RANK_RESULT!r} or no times:\n" + "\n".join(lines))
+    trace_id, span_id = trace.parse_traceparent(grant[trace.TRACEPARENT_ENV])
+    workers = [s for s in spans if s.get("name") == "rank.worker"]
+    want = {"trace": trace_id, "parent": span_id, "pid": child.pid,
+            "attrs": {"host": 0, "num_hosts": 1, "local_rank": 0}}
+    if len(workers) != 1 or "error" in workers[0] or any(
+            workers[0].get(k) != v for k, v in want.items()):
+        fail(f"the rank phase's trace log holds {workers}, expected one rank.worker span with "
+             f"{want}")
+    log(f"rank: card {grant['TPU_VISIBLE_DEVICES']} granted by a one-host ComputeDomain grant "
+        f"(its UUID {times[0]['uuid']} is the granted index's); {RANK_RESULT} over a one-rank "
+        f"NCCL group; one rank.worker span ({workers[0]['dur_ms']} ms) parented on the grant's "
+        f"traceparent, pid {child.pid}; spawn to RESULT {result_s:.3f} s, init_process_group "
+        f"{times[0]['init_process_group_s']:.4f} s ({card})")
+
+
+def rank_child() -> int:
+    """One rank of a one-host ComputeDomain grant, on the card: the env →
+    CUDA, then the port's rank worker (the rank.worker span around
+    ``_worker_body``) on a one-rank NCCL group."""
+    from tpudra_torch.workload import envspec
+
+    grant = envspec.ClaimEnv.from_environ()
+    grant.apply_cuda_env()  # before the first CUDA call
+    import torch
+    import torch.distributed as dist
+
+    from tpudra_torch.sim import multihost
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() != 1:
+        fail("rank: the grant's export left no single CUDA device visible")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=index,uuid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    uuids = dict(line.split(", ", 1) for line in smi.stdout.strip().splitlines())
+    want = UUID.search(uuids.get(str(grant.visible_devices[0]), "").lower())
+    seen = UUID.search(str(torch.cuda.get_device_properties(0).uuid).lower())
+    if smi.returncode != 0 or not want or not seen or want.group() != seen.group():
+        fail(f"rank: the card seen ({seen and seen.group()}) is not the granted index "
+             f"{grant.visible_devices[0]} ({want and want.group()}; nvidia-smi: {smi.stdout!r})")
+    # The worker starts one group (a one-rank group for a one-host grant):
+    # timed here by wrapping the call it makes.
+    starts = []
+    real = dist.init_process_group
+
+    def timed(backend, *args, **kwargs):
+        t0 = time.perf_counter()
+        real(backend, *args, **kwargs)
+        starts.append((backend, time.perf_counter() - t0))
+
+    dist.init_process_group = timed
+    try:
+        rc = multihost.run_rank(grant)
+    finally:
+        dist.init_process_group = real
+    if rc != 0 or [b for b, _ in starts] != ["nccl"]:
+        fail(f"rank: the worker returned {rc} after starting the groups {starts}")
+    print(RANK_TIMES + json.dumps({"init_process_group_s": starts[0][1], "uuid": seen.group()}),
+          flush=True)
     return 0
 
 
@@ -1101,6 +1256,8 @@ def phase_profile(torch, label, run_step, step_ms: float):
 def main() -> int:
     if sys.argv[1:] == ["--distributed"]:
         return distributed_child()
+    if sys.argv[1:] == ["--rank"]:
+        return rank_child()
     import torch
 
     if not torch.cuda.is_available():
@@ -1125,7 +1282,8 @@ def main() -> int:
     )
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     import triton
 
     log(f"versions: python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1176,6 +1334,7 @@ def main() -> int:
     phase_entry(torch, entry, convert)
     torch.cuda.empty_cache()
     pipe_runs = phase_distributed()
+    phase_rank(card)
 
     # Each kernel's launches from the step that runs it.
     for k in kernels:

@@ -508,3 +508,20 @@ def pipeline(rank, world, port):
         out["no_dp_shape"] = tuple(x.shape)
     dist.destroy_process_group()
     return out
+
+
+# -- the gang's rank worker (tests/test_torch_multihost.py) -------------------
+
+
+def gang_rank(rank, world, port):
+    """One rank of a gang through the worker's own entry point, from the
+    grant env alone; returns its exit code and what it printed."""
+    import contextlib
+    import io
+
+    from tpudra_torch.sim import multihost
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = multihost.main(["--worker", "--device", "cpu"])
+    return {"rc": rc, "stdout": out.getvalue(), "pid": os.getpid()}
