@@ -14,10 +14,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               attention tile, a dropped vocab tile or depth slice of the
               CE head) must fail those checks; each kernel timed beside its
               plain version, a PyTorch library yardstick and its bound
-              (attn_fwd and attn_bwd also at seq 8192)
+              (attn_fwd and attn_bwd also at seq 8192).  The chunked CE
+              head's split pass (ce_split, Triton) bit for bit against its
+              plain version at one backward sub-chunk, and the chunk
+              function's logits, dx and dE against f64 products within 4x
+              the f32 SIMT product's error (a bf16 cotangent, a two-plane
+              split and bf16 logits must fail that)
   4. small:   one train step's loss and grads on the card (kernels) against
               the CPU (plain versions) at a small size, with naive and with
-              flash attention
+              flash attention, and with the chunked CE head
   5. step:    the flagship train step at full width (472M params, batch 16,
               seq 1024), granted through a one-device ClaimEnv, twice:
               a. fused CE head, fused AdamW, naive attention, remat "none",
@@ -100,6 +105,10 @@ MOE_BATCH = 8
 LONG_BATCH = 2
 LONG_TIMED_STEPS = 2
 CE_TOL = 2e-3  # lse/target logit, f32 sums of bf16 products in another order
+# The chunked head's logits, dx and dE (f32, before any cast) against f64
+# products of the same bf16 inputs: within SPLIT_TOL times the error of the
+# f32 SIMT product (the upcast path, TF32 off), ‖got − f64‖ / ‖f64‖.
+SPLIT_TOL = 4.0
 ADAMW_P_TOL = 1e-6  # params; moments must be bit-identical
 # Attention, kernel against plain on the same bf16 inputs: the kernels round
 # the probabilities (and dS) to bf16 where they feed a product, the plain
@@ -247,6 +256,100 @@ def phase_ce(torch, ce_kernel) -> dict:
         "replaces": "tpudra/workload/ce_kernel.py:34 (_fwd_kernel, launched at :90 _fwd_pallas)",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def rel_err(got, want) -> float:
+    return float((got.double() - want).norm() / want.norm())
+
+
+def phase_ce_split(torch, ce_kernel) -> dict:
+    """The chunked head at one backward sub-chunk of the flagship step:
+    x [BWD_CHUNK, d_model], E [vocab, d_model], f32 logits from the chunk
+    function's forward product.  The Triton split bit for bit against its
+    plain version, its planes summing to the f32 cotangent exactly; the
+    forward's logits and the backward's dx and dE within SPLIT_TOL times
+    the f32 SIMT product's error against f64, with planted faults (bf16
+    logits, a bf16 cotangent, a two-plane split) failing; the split timed
+    beside its plain version and its byte bound, the products beside the
+    tensor cores' peak."""
+    N, D, V = ce_kernel.BWD_CHUNK, FLAGSHIP["d_model"], FLAGSHIP["vocab"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    emb = (0.02 * torch.randn(V, D, generator=gen, device="cuda")).to(torch.bfloat16)
+    tgt = torch.randint(0, V, (N,), generator=gen, device="cuda", dtype=torch.int32)
+    g = torch.tensor(1 / (12 * 8191), device="cuda")  # dense-s8192's 1/tokens
+
+    logits = ce_kernel._mm_f32(x, emb.t(), ce_kernel.FWD_DEPTH)
+    want64 = x.double() @ emb.double().t()
+    errs = {"logits": rel_err(logits, want64),
+            "logits, bf16 (fault)": rel_err(logits.bfloat16(), want64)}
+    simt = {"logits": rel_err(x.float() @ emb.float().t(), want64)}
+    uncut = rel_err(torch.mm(x, emb.t(), out_dtype=torch.float32), want64)
+    del want64
+    lse = torch.logsumexp(logits, dim=-1)
+
+    planes = ce_kernel.ce_split(logits, lse, tgt, g)
+    torch.cuda.synchronize()
+    plain = ce_kernel.ce_split_plain(logits, lse, tgt, g)
+    if not torch.equal(planes.view(torch.int16), plain.view(torch.int16)):
+        n_diff = int((planes.view(torch.int16) != plain.view(torch.int16)).sum())
+        fail(f"ce_split differs from ce_split_plain in {n_diff} of {plain.numel()} values")
+    del plain
+    p = torch.exp(logits - lse[:, None])
+    p[torch.arange(N, device="cuda"), tgt.long()] -= 1.0
+    d = p * g
+    del p
+    if not torch.equal(planes.double().sum(0), d.double()):
+        fail("ce_split: hi + mid + lo differs from the f32 cotangent")
+    dx64, de64 = d.double() @ emb.double(), d.double().t() @ x.double()
+    simt.update(dx=rel_err(d @ emb.float(), dx64), dE=rel_err(d.t() @ x.float(), de64))
+    del d
+    dx, de = ce_kernel.ce_chunk_grads(x, emb, tgt, logits, lse, g)
+    errs.update(dx=rel_err(dx, dx64), dE=rel_err(de, de64))
+    for k, fault in ((1, "a bf16 cotangent"), (2, "a two-plane split")):
+        dx.zero_()
+        de.zero_()
+        ce_kernel.planes_grads(planes[:k], x, emb, dx, de)
+        errs[f"dx, {fault} (fault)"] = rel_err(dx, dx64)
+        errs[f"dE, {fault} (fault)"] = rel_err(de, de64)
+    del dx64, de64
+    ratio = {n: e / simt[n.split(",")[0]] for n, e in errs.items()}
+    log("kernels: ce_split chunk function, error against f64 in units of the f32 SIMT "
+        f"product's ({', '.join(f'{n} {e:.3g}' for n, e in simt.items())}): "
+        f"{', '.join(f'{n} {r:.3g}x' for n, r in ratio.items())} (tol {SPLIT_TOL}x); "
+        f"the forward's product uncut (depth {D}) {uncut / simt['logits']:.3g}x")
+    sound = {n: r for n, r in ratio.items() if "fault" not in n}
+    if not max(sound.values()) <= SPLIT_TOL:
+        fail(f"the chunked CE head loses f32 precision: {sound} of the SIMT product's error "
+             f"(tol {SPLIT_TOL})")
+    # Each fault fails on one of its products: a two-plane split is about as
+    # precise as the SIMT product in dx at depth V, and shows in dE.
+    for fault in ("logits, bf16", "a bf16 cotangent", "a two-plane split"):
+        if not max(r for n, r in ratio.items() if fault in n) > SPLIT_TOL:
+            fail(f"the chunked CE check passes {fault}: {ratio}")
+
+    ms = time_ms(torch, lambda: ce_kernel.ce_split(logits, lse, tgt, g))
+    plain_ms = time_ms(torch, lambda: ce_kernel.ce_split_plain(logits, lse, tgt, g), iters=5)
+    nbytes = 10.0 * N * V + 8.0 * N  # 4 read and 6 written a logit; lse and targets
+    bound_ms, bound_by = bound(0.0, PEAK_BF16_FLOPS, nbytes)
+    fwd_ms = time_ms(torch, lambda: ce_kernel._mm_f32(x, emb.t(), ce_kernel.FWD_DEPTH), iters=5)
+    uncut_ms = time_ms(torch, lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), iters=5)
+    dx.zero_()
+    de.zero_()
+    grads_ms = time_ms(torch, lambda: ce_kernel.planes_grads(planes, x, emb, dx, de), iters=5)
+    flops = 2.0 * N * D * V
+    log(f"kernels: ce_split N={N} V={V} bit for bit with its plain version; ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); "
+        f"{nbytes / ms / 1e6:.1f} GB/s, {bound_ms / ms * 100:.1f}% of bound; the forward's "
+        f"product {fwd_ms:.3f} ms cut at depth {ce_kernel.FWD_DEPTH} "
+        f"({flops / fwd_ms / 1e9:.1f} TFLOP/s), {uncut_ms:.3f} ms uncut; the six backward "
+        f"products {grads_ms:.3f} ms ({6 * flops / grads_ms / 1e9:.1f} TFLOP/s)")
+    return {
+        "name": "ce_split", "route": "triton", "source": "tpudra_torch/workload/ce_kernel.py",
+        "replaces": "none (the JAX package leaves the chunked head's backward to XLA)",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": plain_ms,
     }
 
 
@@ -597,16 +700,20 @@ def phase_entry(torch, entry, convert) -> None:
         f"{err:.3g} of the largest |logit| off the CPU (tol 5e-2)")
 
 
-def phase_small(torch, model, convert, attn_kernel):
+def phase_small(torch, model, convert, attn_kernel, ce_kernel):
     """The same small train step's loss and grads on the card (kernels) and
     on the CPU (plain versions, held against the JAX package by the tests),
     with naive attention and with the flash kernels (S a multiple of 128, as
-    the tests run splash).  bf16 rounds at other places on the two devices:
-    loss within 2e-2, each grad leaf within 5e-2 of its own max |g|."""
-    for attention, seq in (("naive", 64), ("splash", 128)):
+    the tests run splash), and with the chunked CE head (CEChunk on the
+    card, the upcast path on the CPU).  bf16 rounds at other places on the
+    two devices: loss within 2e-2, each grad leaf within 5e-2 of its own
+    max |g|."""
+    for attention, seq, ce_impl in (("naive", 64, "fused"), ("splash", 128, "fused"),
+                                    ("naive", 64, "chunked")):
         cfg = model.ModelConfig(vocab=512, d_model=128, n_heads=2, n_layers=2, d_ff=256,
-                                max_seq=seq, attention=attention, ce_impl="fused",
-                                opt_impl="fused")
+                                max_seq=seq, attention=attention, ce_impl=ce_impl,
+                                opt_impl="fused", ce_chunk=16)
+        label = f"small step ({attention}, ce {ce_impl}, seq {seq})"
         gen = torch.Generator().manual_seed(3)
         cpu_params = model.init_params(gen, cfg, device="cpu")
         tokens = torch.randint(0, cfg.vocab, (4, cfg.max_seq), generator=gen)
@@ -614,25 +721,29 @@ def phase_small(torch, model, convert, attn_kernel):
         loss_c, grads_c = vg(cpu_params, tokens, cfg)
         gpu_params = convert.tree_map(lambda p: p.cuda(), cpu_params)
         before = attn_kernel.attn_bwd.launches
+        split_before = ce_kernel.ce_split.launches
         loss_g, grads_g = vg(gpu_params, tokens.cuda(), cfg)
         if (attn_kernel.attn_bwd.launches > before) != (attention == "splash"):
-            fail(f"small step ({attention}): attention kernels launched "
+            fail(f"{label}: attention kernels launched "
                  f"{attn_kernel.attn_bwd.launches - before} times")
+        if (ce_kernel.ce_split.launches > split_before) != (ce_impl == "chunked"):
+            fail(f"{label}: ce_split launched "
+                 f"{ce_kernel.ce_split.launches - split_before} times")
         if not abs(float(loss_g) - float(loss_c)) <= 2e-2:
-            fail(f"small step ({attention}): loss {float(loss_g)} on the card, "
+            fail(f"{label}: loss {float(loss_g)} on the card, "
                  f"{float(loss_c)} on the CPU")
         worst = 0.0
         for gc, gg in zip(convert.tree_leaves(grads_c), convert.tree_leaves(grads_g)):
             rel = float((gg.cpu() - gc).abs().max()) / float(gc.abs().max())
             worst = max(worst, rel)
         if not worst <= 5e-2:
-            fail(f"small step ({attention}): a grad leaf differs by {worst} of its max "
+            fail(f"{label}: a grad leaf differs by {worst} of its max "
                  "between card and CPU")
         init, step = model.make_train_step(cfg)
         _, _, loss = step(gpu_params, init(gpu_params), tokens.cuda())
         if not math.isfinite(float(loss)):
-            fail(f"small step ({attention}): non-finite loss")
-        log(f"small ({attention}, seq {seq}): loss card={float(loss_g):.6f} "
+            fail(f"{label}: non-finite loss")
+        log(f"{label}: loss card={float(loss_g):.6f} "
             f"cpu={float(loss_c):.6f}, worst grad leaf diff {worst:.3g} of its max (tol 5e-2)")
 
 
@@ -931,7 +1042,8 @@ def distributed_child() -> int:
     child_ring(torch, model, convert, ringattention, mesh3)
     torch.cuda.empty_cache()
     counters = {"ce_fwd": ce_kernel.ce_fwd, "adamw_step": opt_kernel.adamw_step,
-                "attn_fwd": attn_kernel.attn_fwd, "attn_bwd": attn_kernel.attn_bwd}
+                "attn_fwd": attn_kernel.attn_fwd, "attn_bwd": attn_kernel.attn_bwd,
+                "ce_split": ce_kernel.ce_split}
     pmesh = envspec.mesh_from_devices(("pp", "dp", "tp"), (1, 1, 1))
     launches = child_pipeline(torch, model, convert, pipeline, counters, pmesh)
     torch.cuda.empty_cache()
@@ -1295,13 +1407,16 @@ def main() -> int:
     phase_build(_build, [ce_kernel._LIB, attn_kernel._FWD_LIB, attn_kernel._BWD_LIB])
     kernels = [phase_ce(torch, ce_kernel), phase_adamw(torch, model, opt_kernel)]
     torch.cuda.empty_cache()
+    kernels.append(phase_ce_split(torch, ce_kernel))
+    torch.cuda.empty_cache()
     kernels += phase_attention(torch, attn_kernel)
     torch.cuda.empty_cache()
-    phase_small(torch, model, convert, attn_kernel)
+    phase_small(torch, model, convert, attn_kernel, ce_kernel)
     torch.cuda.empty_cache()
 
     counters = {"ce_fwd": ce_kernel.ce_fwd, "adamw_step": opt_kernel.adamw_step,
-                "attn_fwd": attn_kernel.attn_fwd, "attn_bwd": attn_kernel.attn_bwd}
+                "attn_fwd": attn_kernel.attn_fwd, "attn_bwd": attn_kernel.attn_bwd,
+                "ce_split": ce_kernel.ce_split}
     drive = lambda *a, **kw: drive_step(torch, model, envspec, convert, counters, *a, **kw)  # noqa: E731
     cfg = model.ModelConfig(**FLAGSHIP, ce_impl="fused", opt_impl="fused", attention="naive",
                             remat="none")
@@ -1317,6 +1432,8 @@ def main() -> int:
     label = "step (bench: splash, dots, chunked CE, tree AdamW)"
     bench, _, _ = drive(label, cfg, BATCH, TIMED_STEPS, profile=True)
     expect_attention_launches(label, cfg, bench, 1 + TIMED_STEPS)
+    if bench["ce_split"] <= 0:
+        fail(f"{label}: the chunked CE head never launched the ce_split pass")
     torch.cuda.empty_cache()
 
     cfg = model.ModelConfig(**LONG, attention="splash")

@@ -12,16 +12,39 @@ at [chunk, V].
 ``ce_fwd_plain``, only for CPU tensors.  The kernel takes any N and V, so
 ``fused_ce_mean`` needs no padding; ``fused_ce_sum`` still takes ``n_valid``
 so a caller with padded rows keeps them out of the sum.
+
+The chunked head (``model._ce_sum``) calls ``ce_chunk_sum`` per chunk.  With
+bf16 x and E on CUDA it takes ``CEChunk``, whose three products all run on
+tensor cores with f32 accumulation: the forward's x·Eᵀ (a product of two
+bf16 values is exact in f32), and the backward's d·E and dᵀ·x, with the f32
+cotangent d split exactly into three bf16 planes by ``ce_split`` (a Triton
+pass): hi = bf16(d), mid = bf16(d − hi), lo = bf16(d − hi − mid).  Each
+rounding leaves an f32 residual that is exact; hi and mid take 8 bits each
+of d's 24-bit significand and lo holds the last 8 exactly, with f32's
+exponent range, so hi + mid + lo = d wherever |d| ≥ 2⁻¹¹⁰ (below, lo misses
+by at most bf16's subnormal step, 2⁻¹³⁴), and Σ plane·E = d·E up to the f32
+sums.  The tensor cores' f32 accumulation loses more than an f32 FMA over a
+long sum, so the forward's product and the hi plane's are cut in depth and
+the slices summed in f32 (``_mm_f32``).  Any other input (the CPU, f32)
+takes the upcast product as before.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 BWD_CHUNK = 4096
 _LIB = ("ce_fwd", ("ce_fwd.cu",))
+SPLIT_BLOCK = 1024  # vocab columns per program of the split pass
+FWD_DEPTH = 1024  # depth (d_model columns) of each product of the forward's logits
+SPLIT_COLS = 4096  # depth (vocab columns) of each product of the hi plane's dx
+SPLIT_DEPTH = 1024  # depth (rows) of each product of the hi plane's dE
+
+# triton.language and its libdevice, bound by _split_kernel() at the first launch
+tl = libdevice = None
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -159,3 +182,188 @@ def fused_ce_mean(x2d, emb, targets1d):
     """Mean next-token CE over x2d [N, D] / targets1d [N] (any N)."""
     N = x2d.shape[0]
     return fused_ce_sum(x2d, emb, targets1d, N) / N
+
+
+def ce_split_plain(logits, lse, targets, g):
+    """Plain PyTorch version of the split pass: logits [n, V] f32, lse [n]
+    f32, targets [n] int, g a 0-d f32 tensor → bf16 planes [3, n, V] whose
+    sum is d = g·(exp(logits − lse) − onehot(targets)), exactly wherever
+    |d| ≥ 2⁻¹¹⁰."""
+    p = torch.exp(logits - lse[:, None])
+    rows = torch.arange(p.shape[0], device=p.device)
+    p[rows, targets.long()] -= 1.0
+    d = p * g
+    hi = d.to(torch.bfloat16)
+    r = d - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
+def ce_split(logits, lse, targets, g):
+    """The cotangent of a CE chunk as three bf16 planes [3, n, V]
+    (``ce_split_plain``).  CPU tensors take the plain version; CUDA tensors
+    launch the Triton pass or raise."""
+    devices = {t.device for t in (logits, lse, targets, g)}
+    if len(devices) != 1:
+        raise ValueError(f"ce_split: tensors on several devices: {devices}")
+    if logits.device.type == "cpu":
+        return ce_split_plain(logits, lse, targets, g)
+    if logits.device.type != "cuda":
+        raise ValueError(f"ce_split: no kernel for device {logits.device}")
+    n, V = logits.shape
+    if (logits.dtype, lse.dtype, g.dtype) != (torch.float32,) * 3 or targets.dtype not in (
+        torch.int32, torch.int64,
+    ):
+        raise TypeError(f"ce_split kernel takes f32 logits, lse, g and int targets; got "
+                        f"{logits.dtype}, {lse.dtype}, {g.dtype}, {targets.dtype}")
+    if lse.shape != (n,) or targets.shape != (n,) or g.numel() != 1:
+        raise ValueError(f"ce_split kernel: lse and targets must be [{n}] and g one value")
+    if not all(t.is_contiguous() for t in (logits, lse, targets)):
+        raise ValueError("ce_split kernel needs contiguous logits, lse and targets")
+    planes = torch.empty((3, n, V), dtype=torch.bfloat16, device=logits.device)
+    if n:
+        kernel = _split_kernel()
+        with torch.cuda.device(logits.device):
+            kernel[(n, -(-V // SPLIT_BLOCK))](
+                logits, lse, targets, g, planes[0], planes[1], planes[2], V, BLOCK=SPLIT_BLOCK,
+                # No contraction into FMA: d and its residuals must round
+                # exactly where the plain version rounds them.
+                enable_fp_fusion=False,
+            )
+        ce_split.launches += 1
+    return planes
+
+
+ce_split.launches = 0  # kernel launches, for showing a run went through it
+
+
+@functools.cache
+def _split_kernel():
+    """The Triton split pass, built on first use: this module is imported
+    where triton is absent (the CPU tests), so triton is imported only here.
+
+    Replaces no TPU kernel: the JAX package leaves the chunked head's
+    backward to XLA.  It exists so that the backward's two products can run
+    on bf16 tensor cores without rounding the f32 cotangent.  Bound on an
+    H100: bytes — 4 read and 6 written per logit, one exp and a few f32
+    operations each.  Design: one program per row and SPLIT_BLOCK columns;
+    the row's lse, target and g are loaded once; d is formed in registers
+    and never written in f32; the three planes are stored through one
+    pointer each.  exp is libdevice's, the function torch.exp calls.
+    """
+    global tl, libdevice
+    import triton
+    import triton.language as tl
+    from triton.language.extra import libdevice
+
+    @triton.jit
+    def split_kernel(logits_ptr, lse_ptr, tgt_ptr, g_ptr, hi_ptr, mid_ptr, lo_ptr, V,
+                     BLOCK: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
+        mask = cols < V
+        offs = row * V + cols
+        logit = tl.load(logits_ptr + offs, mask=mask, other=0.0)
+        p = libdevice.exp(logit - tl.load(lse_ptr + row))
+        d = tl.where(cols == tl.load(tgt_ptr + row), p - 1.0, p) * tl.load(g_ptr)
+        hi = d.to(tl.bfloat16)
+        r = d - hi.to(tl.float32)
+        mid = r.to(tl.bfloat16)
+        lo = (r - mid.to(tl.float32)).to(tl.bfloat16)
+        tl.store(hi_ptr + offs, hi, mask=mask)
+        tl.store(mid_ptr + offs, mid, mask=mask)
+        tl.store(lo_ptr + offs, lo, mask=mask)
+
+    return split_kernel
+
+
+def _mm_f32(a, b, depth, acc=None):
+    """``a [m, K] @ b [K, p]`` of bf16 CUDA tensors in f32 on tensor cores,
+    added into the f32 ``acc`` [m, p] in place (or a new tensor where acc is
+    None) and returned.  The product is cut in depth into slices of
+    ``depth``, each added into acc by the product's epilogue.
+
+    On an H100 the tensor cores' f32 accumulation loses more than an f32
+    FMA, and the more the deeper one product is, most where a large term
+    (a target's −g) enters a sum early and small ones follow.  Against f64,
+    in units of the f32 SIMT product's error: dx 12× at depth 32768, 1.5×
+    in slices of 4096; dE 19×, 1.9× in slices of 1024; the forward's
+    logits 5.4× at depth 2048, 2.6× in slices of 1024 (1.2× in 512, for
+    11% more of the head's time)."""
+    for k0 in range(0, a.shape[1], depth):
+        a_k, b_k = a[:, k0:k0 + depth], b[k0:k0 + depth]
+        if acc is None:
+            acc = torch.mm(a_k, b_k, out_dtype=torch.float32)
+        else:
+            torch.addmm(acc, a_k, b_k, out_dtype=torch.float32, out=acc)
+    return acc
+
+
+def planes_grads(planes, x, emb, dx, demb):
+    """Adds Σ plane·E to dx [n, D] and Σ planeᵀ·x to demb [V, D] (both f32)
+    for the cotangent's bf16 planes [k, n, V] (hi first), x [n, D] and emb
+    [V, D].  The hi plane's products are cut in depth, dx into SPLIT_COLS
+    vocab columns and dE into SPLIT_DEPTH rows; the smaller planes, at most
+    2⁻⁸ of hi, are not: each goes into dx at depth V, the smallest first,
+    and they go into dE stacked, at depth (k − 1)·n against x repeated."""
+    k, n, V = planes.shape
+    for i in range(k - 1, -1, -1):
+        _mm_f32(planes[i], emb, SPLIT_COLS if i == 0 else V, dx)
+    if k > 1:
+        rest = planes[1:].reshape((k - 1) * n, V)
+        _mm_f32(rest.t(), x.repeat(k - 1, 1), (k - 1) * n, demb)
+    _mm_f32(planes[0].t(), x, SPLIT_DEPTH, demb)
+
+
+def ce_chunk_grads(x, emb, targets, logits, lse, g):
+    """The backward of ``CEChunk`` in f32: (dx [n, D], dE [V, D]) for the
+    upstream gradient g, in BWD_CHUNK-row sub-chunks, so that the planes
+    exist only at [3, BWD_CHUNK, V]."""
+    n = x.shape[0]
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    demb = torch.zeros(emb.shape, dtype=torch.float32, device=x.device)
+    for r0 in range(0, n, BWD_CHUNK):
+        r1 = min(n, r0 + BWD_CHUNK)
+        planes = ce_split(logits[r0:r1], lse[r0:r1], targets[r0:r1], g)
+        planes_grads(planes, x[r0:r1], emb, dx[r0:r1], demb)
+    return dx, demb
+
+
+class CEChunk(torch.autograd.Function):
+    """Σ over the rows of x [n, D] of ``logsumexp(x·Eᵀ) − target logit``,
+    emb [V, D] and x of one dtype, targets [n] int: one chunk of the
+    chunked head.  The f32 logits are kept for the backward (as autograd
+    keeps them for the plain chunk), with x, E, the targets and lse."""
+
+    @staticmethod
+    def forward(ctx, x, emb, targets):
+        logits = _mm_f32(x, emb.t(), FWD_DEPTH)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(1, targets.long()[:, None])[:, 0]
+        ctx.save_for_backward(x, emb, targets, logits, lse)
+        return (lse - tgt).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, emb, targets, logits, lse = ctx.saved_tensors
+        dx, demb = ce_chunk_grads(x, emb, targets, logits, lse, g.float())
+        return dx.to(x.dtype), demb.to(emb.dtype), None
+
+
+def _on_tensor_cores(x, emb) -> bool:
+    return x.is_cuda and x.dtype == emb.dtype == torch.bfloat16
+
+
+def ce_chunk_sum(x, emb, targets):
+    """Σ (logsumexp − target logit) over the rows of x [..., D] against emb
+    [V, D] and targets [...]: one chunk of the chunked CE head.  bf16 x and
+    emb on CUDA take ``CEChunk``; anything else the upcast product under
+    autograd."""
+    if _on_tensor_cores(x, emb):
+        D = x.shape[-1]
+        return CEChunk.apply(x.reshape(-1, D).contiguous(), emb, targets.reshape(-1).contiguous())
+    logits = matmul_f32(x, emb.t())
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - tgt).sum()

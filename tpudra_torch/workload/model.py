@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (
 )
 
 from tpudra_torch.workload.attn_kernel import HEAD_DIMS, flash_attention
-from tpudra_torch.workload.ce_kernel import fused_ce_sum, matmul_f32
+from tpudra_torch.workload.ce_kernel import ce_chunk_sum, fused_ce_sum, matmul_f32
 from tpudra_torch.workload.convert import tree_leaves, tree_map, tree_unflatten
 from tpudra_torch.workload.device import resolve_device
 from tpudra_torch.workload.moe import MoEConfig, moe_ffn
@@ -387,22 +387,15 @@ def _ce_sum(embed, xs, targets, cfg: ModelConfig):
             xs.reshape(b * s, D), embed, targets.reshape(-1).to(torch.int32), b * s
         )
 
-    emb_t = embed.to(cfg.act_dtype).t()
-
-    def ce_sum(xc, tc):
-        logits = matmul_f32(xc, emb_t)  # bf16 operands, f32 result
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, tc[..., None].long())[..., 0]
-        return (lse - tgt).sum()
-
+    emb = embed.to(cfg.act_dtype)
     chunk = cfg.ce_chunk
     n = s // chunk
     total = torch.zeros((), dtype=torch.float32, device=xs.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
-        total = total + ce_sum(xs[:, sl], targets[:, sl])
+        total = total + ce_chunk_sum(xs[:, sl], emb, targets[:, sl])
     if s % chunk or not s:
-        total = total + ce_sum(xs[:, n * chunk:], targets[:, n * chunk:])
+        total = total + ce_chunk_sum(xs[:, n * chunk:], emb, targets[:, n * chunk:])
     return total
 
 
