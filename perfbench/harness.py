@@ -5,13 +5,28 @@ metrics, and decide ``correct`` against the plain reference.
 Everything that belongs to one configuration, traffic mix, cell or
 per-layer metric is a file found by its name in ``BENCHMARK.json``:
 
-- ``configs[].file``: the model's sizes and flags and its optimizer, which
-  the plain reference (``perfbench/reference/decoder.py``) reads too;
+- ``configs[].file``: the model's sizes and flags and its optimizer, and
+  under ``reference`` the path, from the root, of the plain reference
+  module that follows this configuration (interface below);
 - ``perfbench/traffic/<traffic>.json``: read by ``feed``;
 - ``perfbench/limits/<cell>.json``: the limits of the cell's correctness
   numbers, with the readings they were set from;
 - ``perfbench/metrics/<metric>.py``: a per-layer metric's reader,
   ``read(run) -> float | None``.
+
+A reference module is plain PyTorch that imports nothing of the program.
+It gives:
+
+- ``make_params(conf, seq, seed, device)``: the weights' tree, from
+  ``seed``, which the program is handed too;
+- ``flatten(tree)``: ``{leaf name: tensor}`` of a tree of the params' form
+  (the params, the optimizer's moments);
+- ``follow(conf, params, batches, precision, rows, frozen)``: its own
+  training of ``params`` on ``batches`` and its readings (``losses``,
+  ``grad_norms``, ``change_norms``); ``precision="fp8"`` is the control,
+  ``rows`` and ``frozen`` the planted faults;
+- ``model_flops_per_step(conf, seq, batch, n_params)``: the model FLOPs of
+  one step, which ``step.mfu_pct`` counts.
 
 The program under test is ``tpudra_torch``: the benchmark takes from it the
 train step (``model.make_train_step``), the modules its readers time alone,
@@ -107,8 +122,12 @@ def load_module(path: Path, name: str):
 
 
 def reference(cell: Cell):
-    """The plain reference of the decoder train step."""
-    return load_module(cell.root / "perfbench" / "reference" / "decoder.py", "perfbench_ref")
+    """The plain reference module that the cell's configuration names,
+    imported under its file's stem; there is no default."""
+    if "reference" not in cell.conf:
+        raise RunError(f"the configuration of {cell.name} names no reference")
+    path = cell.root / cell.conf["reference"]
+    return load_module(path, "perfbench_reference_" + path.stem)
 
 
 def banned_modules() -> list[str]:
@@ -196,6 +215,7 @@ class Run:
 
     torch: object
     model: object
+    ref: object
     device: object
     seed: int
     conf: dict
@@ -374,9 +394,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
 
         from perfbench import devtrace
 
-        rd = Run(torch=torch, model=model, device=dev, seed=seed, conf=conf, traffic=traffic,
-                 cfg=cfg, params=loop.params, state=loop.state, pool=pool, n_params=n_params,
-                 window=window, peaks=peaks_for(kind, cell.root) if on_cuda else None)
+        rd = Run(torch=torch, model=model, ref=ref, device=dev, seed=seed, conf=conf,
+                 traffic=traffic, cfg=cfg, params=loop.params, state=loop.state, pool=pool,
+                 n_params=n_params, window=window,
+                 peaks=peaks_for(kind, cell.root) if on_cuda else None)
         if on_cuda:
             warm = lambda: loop.run(PROFILE_WARMUP)  # noqa: E731
             rd.slice = devtrace.record(profile, warm, lambda: loop.run(PROFILE_STEPS),

@@ -308,6 +308,17 @@ def adamw_bf16_moments(params: dict, grads: dict, state, opt: dict):
     return mu, nu, count
 
 
+def model_flops_per_step(conf: dict, seq: int, batch: int, n_params: int) -> float:
+    """Model FLOPs a step, over the batch·(seq − 1) tokens trained: dense,
+    6·N + 12·L·S·D a token (N the params, counted from the cell's tree; the
+    second term the attention products); Switch-MoE, the same with N the
+    active params, one expert FFN a layer: N − L·(E − 1)·2·D·F.  Capacity
+    padding and the dispatch/combine products are not model FLOPs."""
+    L, D, F_, E = (conf["model"][k] for k in ("n_layers", "d_model", "d_ff", "num_experts"))
+    active = n_params - L * (E - 1) * 2 * D * F_ if E else n_params
+    return batch * (seq - 1) * (6 * active + 12 * L * seq * D)
+
+
 def follow(conf: dict, params: dict, batches, precision: str = "f32", rows=None,
            frozen: bool = False) -> dict:
     """Train ``params`` (the tree of ``make_params``, updated in place) on

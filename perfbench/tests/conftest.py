@@ -16,12 +16,16 @@ TINY_TRAFFIC = {"seq": 64, "batch": 4, "pool": 16, "loss_every": 10}
 TINY_LIMITS = {"loss_gap": 1e-2, "grad_gap": 3e-3, "change_gap": 2.5e-3}
 
 
-def add_tiny_cell(root: Path, name: str = "tiny-cell", experts: int = 0,
-                  dtype: str = "bf16") -> None:
-    """Add a cell to ``root``'s benchmark by adding files and entries only."""
+def add_tiny_cell(root: Path, name: str = "tiny-cell", experts: int = 0, dtype: str = "bf16",
+                  reference: str | None = "perfbench/reference/decoder.py") -> None:
+    """Add a cell to ``root``'s benchmark by adding files and entries only;
+    its configuration names ``reference`` (None: no reference key)."""
     base = "switch_moe" if experts else "flagship_dense"
     conf = json.loads((ROOT / "perfbench" / "configs" / f"{base}.json").read_text())
     conf["model"].update(TINY_MODEL, num_experts=experts, compute_dtype=dtype)
+    conf.pop("reference")
+    if reference is not None:
+        conf["reference"] = reference
     data = root / "perfbench"
     (data / "configs" / f"{name}.json").write_text(json.dumps(conf))
     (data / "traffic" / f"{name}.json").write_text(json.dumps(TINY_TRAFFIC))

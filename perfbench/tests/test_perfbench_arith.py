@@ -28,7 +28,7 @@ def cell(name):
     ("dense-s1024", 471_894_016, 81_840, 248_195_405_905_920),
     ("dense-s8192", 486_574_080, 98_292, 445_268_383_875_072),
     # active params: 605,111,296 − 8·7·2·1024·4096 = 135,349,248
-    ("moe-s1024", 605_111_296, 16_368, 14_940_035_776_512),
+    ("moe-s1024-b32", 605_111_296, 32_736, 29_880_071_553_024),
 ])
 def test_model_flops(name, n_params, tokens, flops):
     c = cell(name)
@@ -36,9 +36,7 @@ def test_model_flops(name, n_params, tokens, flops):
     shapes = ref.param_shapes(c.conf, c.traffic["seq"])
     assert sum(math.prod(shape) for shape, _ in shapes.values()) == n_params
     assert feed.tokens_per_step(c.traffic) == tokens
-    got = metric("step.mfu_pct").model_flops_per_step(c.conf["model"], c.traffic["seq"],
-                                                      c.traffic["batch"], n_params)
-    assert got == flops
+    assert ref.model_flops_per_step(c.conf, c.traffic["seq"], c.traffic["batch"], n_params) == flops
 
 
 # [B, H, S, hd]; causal pairs B·H·S(S+1)/2; forward 4·hd FLOPs a pair and
@@ -46,7 +44,7 @@ def test_model_flops(name, n_params, tokens, flops):
 @pytest.mark.parametrize("name, fwd_flops, fwd_bytes, bwd_flops, bwd_bytes", [
     ("dense-s1024", 343_932_928_000, 1_347_420_160, 859_832_320_000, 2_689_597_440),
     ("dense-s8192", 3_298_937_536_512, 1_616_904_192, 8_247_343_841_280, 3_227_516_928),
-    ("moe-s1024", 34_393_292_800, 134_742_016, 85_983_232_000, 268_959_744),
+    ("moe-s1024-b32", 68_786_585_600, 269_484_032, 171_966_464_000, 537_919_488),
 ])
 def test_attention_bounds(name, fwd_flops, fwd_bytes, bwd_flops, bwd_bytes):
     c = cell(name)
@@ -84,7 +82,7 @@ class _Run:
     slice = _Slice()
 
     def __init__(self, c):
-        self.conf, self.traffic = c.conf, c.traffic
+        self.conf, self.traffic, self.ref = c.conf, c.traffic, harness.reference(c)
         self.n_params = 471_894_016
 
 

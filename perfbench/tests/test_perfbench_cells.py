@@ -36,6 +36,77 @@ def test_same_seed_same_inputs(bench_root):
     assert a["losses"] == b["losses"]
 
 
+# A reference of its own for a new architecture: here the decoder's file
+# under another name, whose model-FLOP count differs from the decoder's
+# (about 5.6e8 a step at the tiny cell's sizes) by six orders.  A second
+# copy reads every loss 1 higher, so that a run judged against it fails.
+OWN_COUNT = 10 ** 15
+OWN_REFERENCE = f"""
+
+def model_flops_per_step(conf, seq, batch, n_params):
+    return {OWN_COUNT}
+"""
+SKEWED_REFERENCE = """
+
+_follow = follow
+
+
+def follow(*args, **kwargs):
+    out = _follow(*args, **kwargs)
+    out["losses"] = [x + 1.0 for x in out["losses"]]
+    return out
+"""
+
+
+class _Window:
+    steps, seconds = 40, 8.0
+
+
+class _Run:
+    """What ``step.mfu_pct`` reads of a run on the card."""
+    peaks = {"bf16_flops_per_s": 989e12}
+    window = _Window()
+    n_params = 1
+
+    def __init__(self, cell):
+        self.conf, self.traffic, self.ref = cell.conf, cell.traffic, harness.reference(cell)
+
+
+def test_a_configuration_brings_its_own_reference(bench_root):
+    """A new reference takes only new files and entries: the run is judged
+    against the file that its configuration names, and ``step.mfu_pct``
+    counts that file's model FLOPs."""
+    data = bench_root / "perfbench"
+    decoder = (data / "reference" / "decoder.py").read_text()
+    (data / "reference" / "tiny_decoder.py").write_text(decoder + OWN_REFERENCE)
+    (data / "reference" / "skewed_decoder.py").write_text(decoder + SKEWED_REFERENCE)
+    add_tiny_cell(bench_root, reference="perfbench/reference/tiny_decoder.py")
+    add_tiny_cell(bench_root, "tiny-skewed", reference="perfbench/reference/skewed_decoder.py")
+
+    cell = harness.load_cell("tiny-cell", bench_root)
+    own = harness.reference(cell)
+    assert own.__name__ == "perfbench_reference_tiny_decoder"
+    decoder = harness.load_module(data / "reference" / "decoder.py", "perfbench_reference_decoder")
+    assert decoder.model_flops_per_step(cell.conf, 64, 4, 1) < OWN_COUNT / 1e5
+    mfu = harness.load_module(data / "metrics" / "step.mfu_pct.py", "m_step_mfu")
+    assert mfu.read(_Run(cell)) == pytest.approx(100 * OWN_COUNT * 40 / 8.0 / 989e12)
+
+    out = run_tiny(bench_root)
+    assert out["correct"], out["checks"]
+    skewed = harness.run(harness.load_cell("tiny-skewed", bench_root), 3, 0.3, False,
+                         time.perf_counter(), device="cpu", log=lambda m: None)
+    assert not skewed["correct"]
+    assert skewed["checks"]["loss_gap"]["value"] == pytest.approx(1.0, abs=TINY_LIMITS["loss_gap"])
+
+
+@pytest.mark.parametrize("reference", [None, "perfbench/reference/absent.py"],
+                         ids=["no_key", "no_file"])
+def test_a_configuration_without_its_reference_is_refused(bench_root, reference):
+    add_tiny_cell(bench_root, reference=reference)
+    with pytest.raises(harness.RunError, match="reference"):
+        run_tiny(bench_root)
+
+
 def _unchanged(model):
     real = model.make_train_step
 

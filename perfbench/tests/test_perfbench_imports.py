@@ -56,7 +56,7 @@ sys.path.insert(0, {str(ROOT)!r})
 from perfbench import harness, calibrate, devtrace, feed
 from tpudra_torch.workload import envspec, model, moe, convert
 import torch.profiler
-cell = harness.load_cell("moe-s1024")
+cell = harness.load_cell("moe-s1024-b32")
 harness.reference(cell)
 for i, path in enumerate({metrics!r}):
     harness.load_module(harness.Path(path), f"m{{i}}")

@@ -60,6 +60,9 @@ def test_configs():
         for key in c["reduced"]:
             assert NAME.fullmatch(key) and not WIDTH.search(key), key
         assert {"vocab", "d_model", "n_heads", "n_layers", "d_ff"} <= set(conf["model"])
+        assert {"reference", "model", "optimizer"} <= set(conf)
+        ref = conf["reference"]
+        assert any(ref.startswith(p + "/") for p in M["paths"]) and (ROOT / ref).is_file()
         assert any(w["config"] == c["name"] for w in M["workloads"])
 
 
