@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               attention tile, a dropped vocab tile or depth slice of the
               CE head) must fail those checks; each kernel timed beside its
               plain version, a PyTorch library yardstick and its bound
-              (attn_fwd and attn_bwd also at seq 8192).  The chunked CE
+              (attn_fwd and attn_bwd also at seq 8192); the latent-attention
+              pair (q·k 192, v 128) the same way at the shape the
+              dsv2lite-s8192 cell hands it, [6, 16, 8192], beside PyTorch's
+              SDPA with v at 128.  The chunked CE
               head's split pass (ce_split, Triton) bit for bit against its
               plain version at one backward sub-chunk, and the chunk
               function's logits, dx and dE against f64 products within 4x
@@ -33,7 +36,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               1 warm-up and 3 timed steps each
   6. long:    bench.py's long8192: the same width at seq 8192, batch 2,
               remat "dots", flash attention; 1 warm-up and 2 timed steps,
-              then profiled
+              then profiled; then the dsv2lite-s8192 cell's DeepSeek-V2-Lite
+              step (batch 6, seq 8192; 1 warm-up and 1 timed step), whose
+              attention launches are the latent-attention pair's
   7. moe_small: one small Switch-MoE step's loss and grads on the card
               against the CPU (f32, naive attention), and its loss in bf16
               with the flash kernels
@@ -146,6 +151,25 @@ ATTN_SHAPES = (FLAGSHIP_ATTN, (BATCH, 32, 1024, 64), (2, 4, 1000, 128), MOE_ATTN
                PIPE_MOE_ATTN, LONG_ATTN)
 # The ring phase: the long step's attention in RING_BLOCKS sequence blocks.
 RING_BLOCKS = 8
+
+
+def benchmark_cell(config: str, traffic: str) -> tuple[dict, int]:
+    """A benchmark cell's model (its configuration file's ``model``, at the
+    traffic's seq) and batch, read from perfbench/."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "perfbench")
+    with open(os.path.join(root, "configs", f"{config}.json")) as f:
+        model = json.load(f)["model"]
+    with open(os.path.join(root, "traffic", f"{traffic}.json")) as f:
+        mix = json.load(f)
+    return dict(model, max_seq=mix["seq"]), mix["batch"]
+
+
+# DeepSeek-V2-Lite's step as the dsv2lite-s8192 cell runs it, and the
+# [B, H, S, q·k width, v width] it hands the latent-attention kernels.
+DSV2, DSV2_BATCH = benchmark_cell("deepseek_v2_lite", "seq8192.batch6")
+DSV2_TIMED_STEPS = 1
+MLA_ATTN = (DSV2_BATCH, DSV2["n_heads"], DSV2["max_seq"],
+            DSV2["qk_nope_head_dim"] + DSV2["qk_rope_head_dim"], DSV2["v_head_dim"])
 
 
 def fail(msg: str) -> None:
@@ -450,6 +474,68 @@ def seven_products(flops: float, products: int) -> str:
     return f"; bound of the 7 products done {flops * 7 / 5 / PEAK_BF16_FLOPS * 1e3:.3f} ms"
 
 
+def hold_attention(torch, attn_kernel, label, q, k, v, do, errs: dict):
+    """attn_fwd and attn_bwd on (q, k, v, do) against their plain versions,
+    row by row (attn_kernel.max_row_err), the plain ones one (b, h) slice at
+    a time; the backward from the plain forward's (o, lse), so it is held
+    alone, and twice, bit for bit.  Raises ``errs``' "attn_fwd" and
+    "attn_bwd" to the largest absolute error seen.  Returns the plain (o,
+    lse), (dq, dk, dv) and the seconds the plain forward and backward took."""
+    row_err = attn_kernel.max_row_err
+    o, lse = attn_kernel.attn_fwd(q, k, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_o, want_lse = by_slice(torch, attn_kernel.attn_fwd_plain, q, k, v)
+    torch.cuda.synchronize()
+    plain_fwd_s = time.perf_counter() - t0
+    o_err = row_err(o, want_o)
+    lse_err = float((lse - want_lse).abs().max())
+    if not (o_err <= ATTN_TOL and lse_err <= LSE_TOL):
+        fail(f"attn_fwd {label}: a row of o off by {o_err} of its norm (> {ATTN_TOL}) "
+             f"or lse by {lse_err} (> {LSE_TOL})")
+    errs["attn_fwd"] = max(errs["attn_fwd"], float((o.float() - want_o.float()).abs().max()),
+                           lse_err)
+    del o, lse
+    got = attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(
+            got, attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do))):
+        fail(f"attn_bwd {label}: two runs on the same inputs differ")
+    t0 = time.perf_counter()
+    want = by_slice(torch, attn_kernel.attn_bwd_plain, q, k, v, want_o, want_lse, do)
+    torch.cuda.synchronize()
+    plain_bwd_s = time.perf_counter() - t0
+    rels = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        rels.append(row_err(g, w))
+        errs["attn_bwd"] = max(errs["attn_bwd"], float((g.float() - w.float()).abs().max()))
+        if not rels[-1] <= ATTN_TOL:
+            fail(f"attn_bwd {label}: a row of {name} off by {rels[-1]} of its norm "
+                 f"(> {ATTN_TOL})")
+    log(f"kernels: attention {label}: worst row of o {o_err:.3g}, of dq/dk/dv "
+        f"{', '.join(f'{r:.3g}' for r in rels)} (of the row's norm, tol {ATTN_TOL}); "
+        f"lse {lse_err:.3g} abs (tol {LSE_TOL}); backward bit-identical over two runs")
+    return want_o, want_lse, want, (plain_fwd_s, plain_bwd_s)
+
+
+def held_with_teeth(torch, attn_kernel, label, q, k, v, do, want_o, want_lse, want) -> None:
+    """The comparison has teeth: what a kernel that skipped one tile would
+    return (``skipped_tile``) fails ``hold_attention``'s check against the
+    plain (o, lse) and (dq, dk, dv)."""
+    row_err = attn_kernel.max_row_err
+    bad = skipped_tile(torch, q, k, v, want_o, want_lse, do)
+    names = ("o", "dq", "dk", "dv")
+    caught = {name: row_err(b, w) for name, b, w in zip(names, bad, (want_o, *want))}
+    by_max = {name: float((b.float() - w.float()).abs().max() / w.float().abs().max())
+              for name, b, w in zip(names, bad, (want_o, *want))}
+    log(f"kernels: attention {label}, one tile skipped: worst row "
+        f"{', '.join(f'{n} {e:.3g}' for n, e in caught.items())} (tol {ATTN_TOL}); "
+        f"as a share of each tensor's max |value| "
+        f"{', '.join(f'{n} {e:.3g}' for n, e in by_max.items())}")
+    if not min(caught.values()) > ATTN_TOL:
+        fail(f"the attention check passes a kernel that skips a tile: {caught}")
+
+
 def phase_attention(torch, attn_kernel) -> list[dict]:
     """attn_fwd and attn_bwd against their plain versions at ATTN_SHAPES
     (row by row, attn_kernel.max_row_err), a check that the comparison
@@ -459,56 +545,17 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    row_err = attn_kernel.max_row_err
     errs = {"attn_fwd": 0.0, "attn_bwd": 0.0}
     for shape in ATTN_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(4)
         # q pre-scaled by hd^-½ (as _layer hands it over): unit-variance scores.
         q = (torch.randn(shape, generator=gen, device="cuda") * shape[-1] ** -0.5).bfloat16()
         k, v, do = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
-        o, lse = attn_kernel.attn_fwd(q, k, v)
-        torch.cuda.synchronize()
-        want_o, want_lse = by_slice(torch, attn_kernel.attn_fwd_plain, q, k, v)
-        o_err = row_err(o, want_o)
-        lse_err = float((lse - want_lse).abs().max())
-        if not (o_err <= ATTN_TOL and lse_err <= LSE_TOL):
-            fail(f"attn_fwd {shape}: a row of o off by {o_err} of its norm (> {ATTN_TOL}) "
-                 f"or lse by {lse_err} (> {LSE_TOL})")
-        errs["attn_fwd"] = max(errs["attn_fwd"], float((o.float() - want_o.float()).abs().max()),
-                               lse_err)
-        del o, lse
-        # The backward from the plain forward's (o, lse), so it is held alone.
-        got = attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(
-                got, attn_kernel.attn_bwd(q, k, v, want_o, want_lse, do))):
-            fail(f"attn_bwd {shape}: two runs on the same inputs differ")
-        want = by_slice(torch, attn_kernel.attn_bwd_plain, q, k, v, want_o, want_lse, do)
-        rels = []
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            rels.append(row_err(g, w))
-            errs["attn_bwd"] = max(errs["attn_bwd"], float((g.float() - w.float()).abs().max()))
-            if not rels[-1] <= ATTN_TOL:
-                fail(f"attn_bwd {shape}: a row of {name} off by {rels[-1]} of its norm "
-                     f"(> {ATTN_TOL})")
-        log(f"kernels: attention {list(shape)}: worst row of o {o_err:.3g}, of dq/dk/dv "
-            f"{', '.join(f'{r:.3g}' for r in rels)} (of the row's norm, tol {ATTN_TOL}); "
-            f"lse {lse_err:.3g} abs (tol {LSE_TOL}); backward bit-identical over two runs")
+        want_o, want_lse, want, _ = hold_attention(torch, attn_kernel, list(shape), q, k, v, do,
+                                                   errs)
         if shape == FLAGSHIP_ATTN:
-            # The comparison has teeth: a kernel that skipped one tile fails it.
-            bad = skipped_tile(torch, q, k, v, want_o, want_lse, do)
-            names = ("o", "dq", "dk", "dv")
-            caught = {name: row_err(b, w) for name, b, w in zip(names, bad, (want_o, *want))}
-            by_max = {name: float((b.float() - w.float()).abs().max() / w.float().abs().max())
-                      for name, b, w in zip(names, bad, (want_o, *want))}
-            log(f"kernels: attention {list(shape)}, one tile skipped: worst row "
-                f"{', '.join(f'{n} {e:.3g}' for n, e in caught.items())} (tol {ATTN_TOL}); "
-                f"as a share of each tensor's max |value| "
-                f"{', '.join(f'{n} {e:.3g}' for n, e in by_max.items())}")
-            if not min(caught.values()) > ATTN_TOL:
-                fail(f"the attention check passes a kernel that skips a tile: {caught}")
-            del bad
-        del got, want, want_o, want_lse
+            held_with_teeth(torch, attn_kernel, list(shape), q, k, v, do, want_o, want_lse, want)
+        del want, want_o, want_lse
 
     B, H, S, hd = FLAGSHIP_ATTN
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -580,6 +627,89 @@ def phase_attention(torch, attn_kernel) -> list[dict]:
             f"{bound_ms / ms * 100:.1f}% of bound" + seven_products(flops, products))
         entry.update(long_shape=[B, H, S, hd], long_ms=ms, long_bound_ms=bound_ms,
                      long_library_ms=library_ms)
+    del q, k, v, do, o, lse
+    return out
+
+
+def sdpa_ms(torch, q, k, v, do, iters: int = 5):
+    """PyTorch's SDPA on (q, k, v), causal, scale 1 (q pre-scaled): (forward
+    ms, backward ms alone on a kept graph, backend) on the first backend
+    that takes these widths, of flash, memory-efficient and cuDNN."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=1.0), iters=iters)
+                qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+                lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=1.0)
+                bwd = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_o, (qg, kg, vg), do, retain_graph=True), iters=iters)
+                del lib_o, qg, kg, vg
+            return fwd, bwd, backend.name
+        except RuntimeError as e:
+            log(f"kernels: SDPA {backend.name} does not take q·k {q.shape[-1]} / v "
+                f"{v.shape[-1]}: {str(e).strip().splitlines()[0][:160]}")
+    return None, None, "none"
+
+
+def phase_mla_attention(torch, model, attn_kernel) -> list[dict]:
+    """The latent-attention instantiations (q·k 192, v 128) at the shape the
+    dsv2lite-s8192 step hands them, MLA_ATTN, with q scaled by the model's
+    softmax scale: against their plain versions row by row, one (b, h) slice
+    at a time (hold_attention), a skipped tile caught on the first slice,
+    then timed beside their bounds (the count of mla_attn.roofline_pct: the
+    backward's 5 needed products) and PyTorch's SDPA with v at 128.  Their
+    launches are counted in the dsv2lite step (main)."""
+    B, H, S, dk, dv = MLA_ATTN
+    label = str(list(MLA_ATTN))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    scale = model.softmax_scale(model.ModelConfig(**DSV2))
+    q = (torch.randn(B, H, S, dk, generator=gen, device="cuda") * scale).bfloat16()
+    k = torch.randn(B, H, S, dk, generator=gen, device="cuda").bfloat16()
+    v, do = (torch.randn(B, H, S, dv, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    errs = {"attn_fwd": 0.0, "attn_bwd": 0.0}
+    want_o, want_lse, want, plain_s = hold_attention(torch, attn_kernel, label, q, k, v, do, errs)
+    first = lambda t: t[:1, :1]  # noqa: E731
+    held_with_teeth(torch, attn_kernel, f"{label}, slice (0, 0)",
+                    *(first(t) for t in (q, k, v, do)), first(want_o), first(want_lse),
+                    tuple(first(w) for w in want))
+    del want, want_o, want_lse
+    torch.cuda.empty_cache()
+
+    o, lse = attn_kernel.attn_fwd(q, k, v)
+    lib_fwd, lib_bwd, backend = sdpa_ms(torch, q, k, v, do)
+    pairs = B * H * S * (S + 1) / 2
+    rows = 2.0 * B * H * S  # bytes of one bf16 column over every row
+    lse_bytes = 4.0 * B * H * S
+    out = []
+    for name, kernel, plain_ms, flops, nbytes, library_ms in (
+            ("attn_fwd", lambda: attn_kernel.attn_fwd(q, k, v), plain_s[0] * 1e3,
+             2 * pairs * (dk + dv), rows * (2 * dk + 2 * dv) + lse_bytes, lib_fwd),
+            ("attn_bwd", lambda: attn_kernel.attn_bwd(q, k, v, o, lse, do), plain_s[1] * 1e3,
+             2 * pairs * (3 * dk + 2 * dv), rows * (4 * dk + 4 * dv) + lse_bytes, lib_bwd)):
+        ms = time_ms(torch, kernel, iters=5)
+        bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+        # The dq kernel computes q·kᵀ and do·vᵀ again: 7 products done.
+        done = "" if name == "attn_fwd" else (
+            f"; bound of the 7 products done "
+            f"{2 * pairs * (4 * dk + 3 * dv) / PEAK_BF16_FLOPS * 1e3:.3f} ms")
+        library = "not run" if library_ms is None else f"{library_ms:.3f}"
+        log(f"kernels: {name}<{dk}, {dv}> {list(MLA_ATTN)} ms={ms:.3f} plain_ms={plain_ms:.1f} "
+            f"(by (b, h) slice) library_ms={library} (SDPA {backend}) bound_ms={bound_ms:.3f} "
+            f"({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms * 100:.1f}% of bound"
+            + done)
+        out.append({
+            "name": f"{name}<{dk},{dv}>", "counter": name, "route": "cuda",
+            "source": f"tpudra_torch/workload/csrc/{name}.cu",
+            "replaces": "none: the JAX package has no latent attention",
+            "shape": list(MLA_ATTN), "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "plain": "by (b, h) slice", "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "library": f"SDPA {backend}",
+        })
     del q, k, v, do, o, lse
     return out
 
@@ -748,12 +878,17 @@ def phase_small(torch, model, convert, attn_kernel, ce_kernel):
 
 
 def check_attn_shape(label, cfg, batch) -> None:
-    """Refuses a flash step whose attention shape is not in ATTN_SHAPES."""
+    """Refuses a flash step whose attention shape is not in ATTN_SHAPES (a
+    latent-attention step's: not MLA_ATTN)."""
     if cfg.use_flash_attention(cfg.max_seq, "cuda"):
-        shape = attn_shape(batch, cfg.n_heads, cfg.max_seq, cfg.d_model)
-        if shape not in ATTN_SHAPES:
+        if cfg.arch == "deepseek_v2":
+            shape = (batch, cfg.n_heads, cfg.max_seq, cfg.qk_head_dim, cfg.v_head_dim)
+            held = (MLA_ATTN,)
+        else:
+            shape, held = attn_shape(batch, cfg.n_heads, cfg.max_seq, cfg.d_model), ATTN_SHAPES
+        if shape not in held:
             fail(f"{label}: attention shape {shape} is not held against the plain versions "
-                 f"(ATTN_SHAPES)")
+                 f"(ATTN_SHAPES, MLA_ATTN)")
 
 
 def drive_step(torch, model, envspec, convert, counters, label, cfg, batch, timed, profile=False):
@@ -1411,6 +1546,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += phase_attention(torch, attn_kernel)
     torch.cuda.empty_cache()
+    mla = phase_mla_attention(torch, model, attn_kernel)
+    torch.cuda.empty_cache()
     phase_small(torch, model, convert, attn_kernel, ce_kernel)
     torch.cuda.empty_cache()
 
@@ -1442,6 +1579,15 @@ def main() -> int:
     expect_attention_launches(label, cfg, long, 1 + LONG_TIMED_STEPS)
     torch.cuda.empty_cache()
 
+    cfg = model.ModelConfig(**DSV2)
+    label = "dsv2lite (the dsv2lite-s8192 cell's step: MLA, dropless top-6)"
+    dsv2, _, _ = drive(label, cfg, DSV2_BATCH, DSV2_TIMED_STEPS)
+    expect_attention_launches(label, cfg, dsv2, 1 + DSV2_TIMED_STEPS)
+    for k in mla:
+        k["launches"] = dsv2[k.pop("counter")]
+        k["launches_per_step"] = k["launches"] / (1 + DSV2_TIMED_STEPS)
+    torch.cuda.empty_cache()
+
     phase_moe_small(torch, model, convert, attn_kernel)
     torch.cuda.empty_cache()
     moe_runs = phase_moe(torch, drive, model, moe)
@@ -1461,7 +1607,7 @@ def main() -> int:
         if k["name"] in moe_runs:
             k["moe_launches"] = moe_runs[k["name"]]
         k["pipelined_launches"] = pipe_runs[k["name"]]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + mla}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

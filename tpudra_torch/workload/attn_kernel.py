@@ -12,6 +12,9 @@ where 5 would do (dq's kernel computes q·kᵀ and do·vᵀ again); the bound of
 the 5 is 0.174 ms at the flagship [16, 16, 1024, 128] on an H100.  No
 atomics: a run on the card repeats bit for bit.
 
+q and k may be wider than v and o (``WIDTHS``): latent attention's q·kᵀ
+runs over 128 + 64 RoPE columns and its p·v over 128.
+
 The kernels apply no scale: the caller scales q, in its own dtype, as the
 JAX model does before it calls splash.  ``attn_fwd`` and ``attn_bwd`` launch
 the kernels for CUDA tensors and take their plain versions, which follow
@@ -24,7 +27,10 @@ import ctypes
 
 import torch
 
-HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
+# (q·k width, v width) pairs the kernels are built for.
+WIDTHS = ((64, 64), (128, 128), (192, 128))
+# Tensors as wide as v (the rest are as wide as q).
+_V_WIDE = ("v", "o", "do")
 _FWD_LIB = ("attn_fwd", ("attn_fwd.cu",))
 _BWD_LIB = ("attn_bwd", ("attn_bwd.cu",))
 
@@ -38,8 +44,9 @@ def _causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Plain PyTorch version of the forward kernel: q, k, v [B, H, S, hd]
-    (one dtype) → (o [B, H, S, hd] in that dtype, lse [B, H, S] f32).
+    """Plain PyTorch version of the forward kernel: q, k [B, H, S, dk] and
+    v [B, H, S, dv] (one dtype) → (o [B, H, S, dv] in that dtype, lse
+    [B, H, S] f32).
     Splash's reference math: f32 scores, f32 softmax, ``o = p·v`` in f32,
     ``lse = m + log l``."""
     s = _causal_scores(q, k)
@@ -84,9 +91,10 @@ def max_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(row_errs(got, want).max())
 
 
-def _check(name: str, shape, tensors: dict) -> str:
+def _check(name: str, shape, dv: int, tensors: dict) -> str:
     """The device type the tensors share; for CUDA, raise unless every
-    tensor is what the kernels take."""
+    tensor is what the kernels take: q's ``shape`` [B, H, S, dk], v's width
+    ``dv``."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices: {devices}")
@@ -97,14 +105,15 @@ def _check(name: str, shape, tensors: dict) -> str:
         raise ValueError(f"{name}: no kernel for device {dev}")
     if len(shape) != 4:
         raise ValueError(f"{name}: q must be [B, H, S, hd], got {tuple(shape)}")
-    B, H, S, hd = shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    B, H, S, dk = shape
+    if (dk, dv) not in WIDTHS:
+        raise ValueError(f"{name} kernel takes (q·k, v) head_dim pairs in {WIDTHS}, "
+                         f"got {(dk, dv)}")
     if not (0 < B * H < 65536 and 0 < S < 2**31):
         raise ValueError(f"{name} kernel: B*H={B * H}, S={S} out of range")
     for tn, t in tensors.items():
         want = torch.float32 if tn == "lse" else torch.bfloat16
-        want_shape = (B, H, S) if tn == "lse" else (B, H, S, hd)
+        want_shape = (B, H, S) if tn == "lse" else (B, H, S, dv if tn in _V_WIDE else dk)
         if t.dtype != want or tuple(t.shape) != want_shape:
             raise TypeError(
                 f"{name} kernel takes {tn} {want} {list(want_shape)}, "
@@ -124,17 +133,18 @@ def _launch(fn, name: str, device, *args) -> None:
 
 
 def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """(o, lse) of causal attention over q, k, v [B, H, S, hd].  CPU tensors
-    take ``attn_fwd_plain``; CUDA tensors launch the kernel (bf16,
-    contiguous, hd 64 or 128, any S ≥ 1) or raise."""
-    if _check("attn_fwd", q.shape, {"q": q, "k": k, "v": v}) == "cpu":
+    """(o, lse) of causal attention over q, k [B, H, S, dk] and v [B, H, S,
+    dv].  CPU tensors take ``attn_fwd_plain``; CUDA tensors launch the kernel
+    (bf16, contiguous, (dk, dv) in ``WIDTHS``, any S ≥ 1) or raise."""
+    if _check("attn_fwd", q.shape, v.shape[-1], {"q": q, "k": k, "v": v}) == "cpu":
         return attn_fwd_plain(q, k, v)
-    B, H, S, hd = q.shape
-    o = torch.empty_like(q)
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    o = torch.empty_like(v)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch(_kernel_fn(_FWD_LIB, "tpudra_attn_fwd", 5), "attn_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B * H, S, hd)
+            B * H, S, dk, dv)
     attn_fwd.launches += 1
     return o, lse
 
@@ -148,15 +158,15 @@ def attn_bwd(q, k, v, o, lse, do):
     launch the two backward kernels (same constraints as ``attn_fwd``) or
     raise."""
     tensors = {"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}
-    if _check("attn_bwd", q.shape, tensors) == "cpu":
+    if _check("attn_bwd", q.shape, v.shape[-1], tensors) == "cpu":
         return attn_bwd_plain(q, k, v, o, lse, do)
-    B, H, S, hd = q.shape
+    B, H, S, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((B, H, S), dtype=torch.float32, device=q.device)  # scratch
     _launch(_kernel_fn(_BWD_LIB, "tpudra_attn_bwd", 10), "attn_bwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
-            B * H, S, hd)
+            B * H, S, q.shape[-1], v.shape[-1])
     attn_bwd.launches += 1
     return dq, dk, dv
 
@@ -168,7 +178,7 @@ def _kernel_fn(lib, symbol: str, n_ptrs: int):
     from tpudra_torch.workload import _build
 
     fn = getattr(_build.load(*lib), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -192,7 +202,8 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, save_residuals: bool = False):
-    """Causal attention over q, k, v [B, H, S, hd] (q already scaled): o, or
+    """Causal attention over q, k [B, H, S, dk] and v [B, H, S, dv] (q
+    already scaled): o [B, H, S, dv], or
     (o, lse) with ``save_residuals`` as splash returns them."""
     o, lse = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous())
     return (o, lse) if save_residuals else o

@@ -64,6 +64,12 @@
 //     steps, and a warpgroup whose rows see none of a tile (dq: warpgroup 0 and
 //     the kv tile past its diagonal; dk/dv: warpgroup 1 and the first q
 //     tile) runs its products all the same, masked to P = 0.
+// Widths: q, k, dq, dk are DK wide, v, o, do, dv DV wide; instantiated at
+// (64, 64), (128, 128) and (192, 128) (latent attention, attn_fwd.cu).  At
+// DK 192 the dq kernel's dQ += dS·K is an n128 and an n64 product side by
+// side (dQ 96 f32 a thread), and the dk/dv kernel, whose dK and dV take 96 +
+// 64 f32 a thread, streams 32-row q tiles instead of 64 (Sᵀ and dPᵀ 16 + 16,
+// the packed Pᵀ and dSᵀ 8 + 8), so that it stays under 255 registers.
 // P and dS are rounded to bf16 only where they feed a product, as in
 // attn_fwd.cu; their f32 values make dS.  Ragged S: q and k rows >= S come
 // in as zeros; in the dq kernel rows >= S take lse = +inf (P = 0); in the
@@ -79,48 +85,65 @@ using namespace hopper;
 namespace {
 
 constexpr int BM = 128;  // rows a CTA owns (2 warpgroups x 64)
-constexpr int BT = 64;   // rows of a streamed tile
+constexpr int BT = 64;   // rows of a tile the dq kernel streams
 constexpr int STAGES = 3;
 constexpr int THREADS = 256;
 constexpr int CONSUMER_WARPS = 8;
 constexpr int BIG_BOX = BM * BOX_COLS;    // [128 x 64] box, elements
-constexpr int SMALL_BOX = BT * BOX_COLS;  // [64 x 64] box, elements
 constexpr uint32_t BIG_BOX_BYTES = BIG_BOX * sizeof(bf16);
-constexpr uint32_t SMALL_BOX_BYTES = SMALL_BOX * sizeof(bf16);
 constexpr int HEAD_GROUP = 16;  // heads whose CTAs run together (cta_work)
 
-// Shared memory of either kernel: two [128 x HD] tiles of its own rows, two
-// [64 x HD] tiles per stage, the mbarriers, and `floats` f32 values.
-template <int HD>
-constexpr int smem_bytes(int floats) {
+// Rows of a q tile the dk/dv kernel streams at q·k width DK.
+template <int DK>
+__host__ __device__ constexpr int dkv_rows() {
+  return DK > 128 ? 32 : 64;
+}
+
+// Shared memory of either kernel: its own rows' [128 x DK] and [128 x DV]
+// tiles, a [rows x DK] and a [rows x DV] tile per stage, the mbarriers, and
+// `floats` f32 values.
+template <int DK, int DV>
+constexpr int smem_bytes(int rows, int floats) {
   return 1024 /* alignment slack */ +
-         2 * (HD / BOX_COLS) * (int)(BIG_BOX_BYTES + STAGES * SMALL_BOX_BYTES) +
+         (DK + DV) / BOX_COLS * (int)(BIG_BOX_BYTES + STAGES * rows * BOX_COLS * sizeof(bf16)) +
          (1 + 2 * STAGES) * (int)sizeof(uint64_t) + floats * (int)sizeof(float);
 }
 
-// acc[32] = A·Bᵀ over depth HD: A 64 rows of a 128-row tile (`a` at its
-// first row, in box 0), B a 64-row tile; both K-major.
-template <int HD>
+// acc[N / 2] = A·Bᵀ over depth D: A 64 rows of a 128-row tile (`a` at its
+// first row, in box 0), B an N-row tile (N = 64 or 32); both K-major.
+template <int D, int N>
 __device__ __forceinline__ void ss_product(float* acc, const bf16* a, const bf16* b) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const int col = (kk % 4) * 16;
-    wgmma_ss_n64(acc, desc_kmajor(a + (kk / 4) * BIG_BOX + col),
-                 desc_kmajor(b + (kk / 4) * SMALL_BOX + col), kk > 0);
+    const uint64_t da = desc_kmajor(a + (kk / 4) * BIG_BOX + col);
+    const uint64_t db = desc_kmajor(b + (kk / 4) * N * BOX_COLS + col);
+    if constexpr (N == 64) {
+      wgmma_ss_n64(acc, da, db, kk > 0);
+    } else {
+      wgmma_ss_n32(acc, da, db, kk > 0);
+    }
   }
 }
 
-// acc[HD / 2] += A·B over depth 64: A packed in registers (a[16], 4 per
-// k16 step: pack_a), B a 64-row tile read MN-major.
-template <int HD>
+// acc[N / 2] += A·B over depth R: A packed in registers (4 per k16 step:
+// pack_a), B an R-row tile N columns wide (boxes of R rows) read MN-major.
+// N = 192 is an n128 product over the first two boxes and an n64 one over
+// the third, whose accumulator follows: acc[4j..4j+3] hold columns 8j..8j+7
+// throughout, as one n192 accumulator would.
+template <int N, int R>
 __device__ __forceinline__ void rs_product(float* acc, const uint32_t* a, const bf16* b) {
+  constexpr uint32_t box_bytes = R * BOX_COLS * sizeof(bf16);
 #pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    const uint64_t desc = desc_mnmajor(b + kk * 16 * BOX_COLS, SMALL_BOX_BYTES);
-    if constexpr (HD == 128) {
-      wgmma_rs_n128_mn(acc, a + 4 * kk, desc, 1);
+  for (int kk = 0; kk < R / 16; ++kk) {
+    const bf16* bk = b + kk * 16 * BOX_COLS;
+    if constexpr (N == 192) {
+      wgmma_rs_n128_mn(acc, a + 4 * kk, desc_mnmajor(bk, box_bytes), 1);
+      wgmma_rs_n64_mn(acc + 64, a + 4 * kk, desc_mnmajor(bk + 2 * R * BOX_COLS, box_bytes), 1);
+    } else if constexpr (N == 128) {
+      wgmma_rs_n128_mn(acc, a + 4 * kk, desc_mnmajor(bk, box_bytes), 1);
     } else {
-      wgmma_rs_n64_mn(acc, a + 4 * kk, desc, 1);
+      wgmma_rs_n64_mn(acc, a + 4 * kk, desc_mnmajor(bk, box_bytes), 1);
     }
   }
 }
@@ -174,7 +197,7 @@ __device__ __forceinline__ void your_turn(int wg, bool last) {
   if (!(wg == 1 && last)) bar_arrive(2 - wg, 256);
 }
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tmap_q,
                        const __grid_constant__ CUtensorMap tmap_do,
@@ -182,15 +205,17 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const __grid_constant__ CUtensorMap tmap_v, const bf16* __restrict__ o,
                        const bf16* __restrict__ dout, const float* __restrict__ lse,
                        bf16* __restrict__ dq, float* __restrict__ di, int S) {
-  constexpr int NB = HD / BOX_COLS;  // boxes per row of a tile
+  constexpr int NK = DK / BOX_COLS, NV = DV / BOX_COLS;  // boxes per row of a tile
+  constexpr int SMALL_BOX = BT * BOX_COLS;                // [64 x 64] box, elements
+  constexpr uint32_t SMALL_BOX_BYTES = SMALL_BOX * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   bf16* qs = reinterpret_cast<bf16*>(base);
-  bf16* dos = qs + NB * BIG_BOX;
-  bf16* ks = dos + NB * BIG_BOX;
-  bf16* vs = ks + STAGES * NB * SMALL_BOX;
-  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(vs + STAGES * NB * SMALL_BOX);
+  bf16* dos = qs + NK * BIG_BOX;
+  bf16* ks = dos + NV * BIG_BOX;
+  bf16* vs = ks + STAGES * NK * SMALL_BOX;
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(vs + STAGES * NV * SMALL_BOX);
   uint64_t* full = qdo_full + 1;
   uint64_t* empty = full + STAGES;
   float* d_s = reinterpret_cast<float*>(empty + STAGES);  // di of the CTA's rows
@@ -220,20 +245,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto load = [&](int j) {
     const int s = j % STAGES;
     mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-    mbar_expect_tx(&full[s], 2 * NB * SMALL_BOX_BYTES);
+    mbar_expect_tx(&full[s], (NK + NV) * SMALL_BOX_BYTES);
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      tma_load_3d(ks + (s * NB + b) * SMALL_BOX, &tmap_k, &full[s], b * BOX_COLS, j * BT, bh);
-      tma_load_3d(vs + (s * NB + b) * SMALL_BOX, &tmap_v, &full[s], b * BOX_COLS, j * BT, bh);
-    }
+    for (int b = 0; b < NK; ++b)
+      tma_load_3d(ks + (s * NK + b) * SMALL_BOX, &tmap_k, &full[s], b * BOX_COLS, j * BT, bh);
+#pragma unroll
+    for (int b = 0; b < NV; ++b)
+      tma_load_3d(vs + (s * NV + b) * SMALL_BOX, &tmap_v, &full[s], b * BOX_COLS, j * BT, bh);
   };
   if (loader) {
-    mbar_expect_tx(qdo_full, 2 * NB * BIG_BOX_BYTES);
+    mbar_expect_tx(qdo_full, (NK + NV) * BIG_BOX_BYTES);
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
+    for (int b = 0; b < NK; ++b)
       tma_load_3d(qs + b * BIG_BOX, &tmap_q, qdo_full, b * BOX_COLS, m0, bh);
+#pragma unroll
+    for (int b = 0; b < NV; ++b)
       tma_load_3d(dos + b * BIG_BOX, &tmap_do, qdo_full, b * BOX_COLS, m0, bh);
-    }
     load(0);
   }
 
@@ -245,11 +272,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int row = m0 + r;
     float sum = 0.f;
     if (row < S) {
-      const size_t at = (head + row) * HD + half * (HD / 2);
+      const size_t at = (head + row) * DV + half * (DV / 2);
       const uint4* op = reinterpret_cast<const uint4*>(o + at);
       const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {
+      for (int c = 0; c < DV / 16; ++c) {
         uint4 a = op[c], b = dp[c];
         const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
         const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
@@ -283,10 +310,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) mbar_arrive(&empty[j % STAGES]);
   };
 
-  float s_acc[BT / 2], dp_acc[BT / 2], dq_acc[HD / 2];
+  float s_acc[BT / 2], dp_acc[BT / 2], dq_acc[DK / 2];
   uint32_t ds_a[BT / 4];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dq_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BT / 2; ++i) s_acc[i] = dp_acc[i] = 0.f;
 
@@ -313,13 +340,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   // S and dP as two commit groups.
   auto issue_ss = [&](int j) {
     const int s = j % STAGES;
-    ss_product<HD>(s_acc, qa, ks + s * NB * SMALL_BOX);
+    ss_product<DK, BT>(s_acc, qa, ks + s * NK * SMALL_BOX);
     wgmma_commit();
-    ss_product<HD>(dp_acc, doa, vs + s * NB * SMALL_BOX);
+    ss_product<DV, BT>(dp_acc, doa, vs + s * NV * SMALL_BOX);
     wgmma_commit();
   };
   auto issue_rs = [&](int j) {
-    rs_product<HD>(dq_acc, ds_a, ks + (j % STAGES) * NB * SMALL_BOX);
+    rs_product<DK, BT>(dq_acc, ds_a, ks + (j % STAGES) * NK * SMALL_BOX);
   };
 
   // Step 0: S and dP of kv tile 0.
@@ -373,10 +400,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   fence_regs(dq_acc);
   release(n_kv - 1);
 
-  store_rows<HD>(dq + (head + m0 + wg * 64) * HD, dq_acc, lrow, S - m0 - wg * 64, t);
+  store_rows<DK>(dq + (head + m0 + wg * 64) * DK, dq_acc, lrow, S - m0 - wg * 64, t);
 }
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tmap_k,
                         const __grid_constant__ CUtensorMap tmap_v,
@@ -384,25 +411,28 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const __grid_constant__ CUtensorMap tmap_do, const float* __restrict__ lse,
                         const float* __restrict__ di, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int S) {
-  constexpr int NB = HD / BOX_COLS;
+  constexpr int NK = DK / BOX_COLS, NV = DV / BOX_COLS;
+  constexpr int BQ = dkv_rows<DK>();     // rows of a streamed q tile
+  constexpr int SMALL_BOX = BQ * BOX_COLS;  // [BQ x 64] box, elements
+  constexpr uint32_t SMALL_BOX_BYTES = SMALL_BOX * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   bf16* ks = reinterpret_cast<bf16*>(base);
-  bf16* vs = ks + NB * BIG_BOX;
-  bf16* qs = vs + NB * BIG_BOX;
-  bf16* dos = qs + STAGES * NB * SMALL_BOX;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dos + STAGES * NB * SMALL_BOX);
+  bf16* vs = ks + NK * BIG_BOX;
+  bf16* qs = vs + NV * BIG_BOX;
+  bf16* dos = qs + STAGES * NK * SMALL_BOX;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dos + STAGES * NV * SMALL_BOX);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
-  float* l_s = reinterpret_cast<float*>(empty + STAGES);  // [STAGES][64] lse of the q tile
-  float* d_s = l_s + STAGES * BT;                          // [STAGES][64] di of the q tile
+  float* l_s = reinterpret_cast<float*>(empty + STAGES);  // [STAGES][BQ] lse of the q tile
+  float* d_s = l_s + STAGES * BQ;                          // [STAGES][BQ] di of the q tile
 
   const Work w = cta_work((S + BM - 1) / BM);
   const int bh = w.bh;
   const int n0 = w.rank * BM;  // the first kv tiles have the longest columns
-  const int i0 = n0 / BT;          // the first q tile that sees these keys
-  const int n_q = (S + BT - 1) / BT - i0;  // q tiles walked (>= 1: n0 < S)
+  const int i0 = n0 / BQ;          // the first q tile that sees these keys
+  const int n_q = (S + BQ - 1) / BQ - i0;  // q tiles walked (>= 1: n0 < S)
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -421,33 +451,35 @@ __global__ void __launch_bounds__(THREADS, 1)
   // both warpgroups have released the tile held there.
   const bool loader = threadIdx.x < 32;
   auto load = [&](int u) {
-    const int s = u % STAGES, q0 = (i0 + u) * BT;
+    const int s = u % STAGES, q0 = (i0 + u) * BQ;
     mbar_wait(&empty[s], ((u / STAGES) & 1) ^ 1);
     if (lane == 0) {
-      mbar_expect_tx(&full[s], 2 * NB * SMALL_BOX_BYTES);
+      mbar_expect_tx(&full[s], (NK + NV) * SMALL_BOX_BYTES);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        tma_load_3d(qs + (s * NB + b) * SMALL_BOX, &tmap_q, &full[s], b * BOX_COLS, q0, bh);
-        tma_load_3d(dos + (s * NB + b) * SMALL_BOX, &tmap_do, &full[s], b * BOX_COLS, q0, bh);
-      }
+      for (int b = 0; b < NK; ++b)
+        tma_load_3d(qs + (s * NK + b) * SMALL_BOX, &tmap_q, &full[s], b * BOX_COLS, q0, bh);
+#pragma unroll
+      for (int b = 0; b < NV; ++b)
+        tma_load_3d(dos + (s * NV + b) * SMALL_BOX, &tmap_do, &full[s], b * BOX_COLS, q0, bh);
     }
 #pragma unroll
-    for (int e = 0; e < BT / 32; ++e) {
+    for (int e = 0; e < BQ / 32; ++e) {
       const int c = lane + 32 * e, row = q0 + c;
       const bool in = row < S;
-      cp_async_4(&l_s[s * BT + c], lse + head + (in ? row : 0), in);
-      cp_async_4(&d_s[s * BT + c], di + head + (in ? row : 0), in);
+      cp_async_4(&l_s[s * BQ + c], lse + head + (in ? row : 0), in);
+      cp_async_4(&d_s[s * BQ + c], di + head + (in ? row : 0), in);
     }
     cp_async_mbar_arrive(&full[s]);
   };
   if (loader) {
     if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * NB * BIG_BOX_BYTES);
+      mbar_expect_tx(kv_full, (NK + NV) * BIG_BOX_BYTES);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
+      for (int b = 0; b < NK; ++b)
         tma_load_3d(ks + b * BIG_BOX, &tmap_k, kv_full, b * BOX_COLS, n0, bh);
+#pragma unroll
+      for (int b = 0; b < NV; ++b)
         tma_load_3d(vs + b * BIG_BOX, &tmap_v, kv_full, b * BOX_COLS, n0, bh);
-      }
     }
     load(0);
   }
@@ -462,23 +494,25 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) mbar_arrive(&empty[u % STAGES]);
   };
 
-  float s_acc[BT / 2], dp_acc[BT / 2], dk_acc[HD / 2], dv_acc[HD / 2];
-  uint32_t p_a[BT / 4], ds_a[BT / 4];
+  float s_acc[BQ / 2], dp_acc[BQ / 2], dk_acc[DK / 2], dv_acc[DV / 2];
+  uint32_t p_a[BQ / 4], ds_a[BQ / 4];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dk_acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < BT / 2; ++i) s_acc[i] = dp_acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) s_acc[i] = dp_acc[i] = 0.f;
 
   // For q tile i0 + u: mask, then Pᵀ in s_acc (f32); then dSᵀ = Pᵀ∘(dPᵀ −
   // di) in dp_acc.  Query column c of the tile comes before key row lrow
-  // (+ 8) when c + off < lrow (+ 8): on the diagonal tile (i0 + wg) and on
-  // warpgroup 1's tile i0, which is wholly masked (its products run, Pᵀ is
-  // 0).
+  // (+ 8) when c + off < lrow (+ 8): on the diagonal tiles of warpgroup wg
+  // (those over its rows n0 + 64·wg ...) and on warpgroup 1's tiles before
+  // them, which are wholly masked (their products run, Pᵀ is 0).
   auto p_pass = [&](int u) {
-    const int off = (u - wg) * BT;
-    const float* lc = l_s + (u % STAGES) * BT;
+    const int off = u * BQ - wg * 64;
+    const float* lc = l_s + (u % STAGES) * BQ;
 #pragma unroll
-    for (int jj = 0; jj < BT / 8; ++jj) {
+    for (int jj = 0; jj < BQ / 8; ++jj) {
       const float2 l2 = *reinterpret_cast<const float2*>(lc + 8 * jj + 2 * t);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -489,9 +523,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
   auto ds_pass = [&](int u) {
-    const float* dc = d_s + (u % STAGES) * BT;
+    const float* dc = d_s + (u % STAGES) * BQ;
 #pragma unroll
-    for (int jj = 0; jj < BT / 8; ++jj) {
+    for (int jj = 0; jj < BQ / 8; ++jj) {
       const float2 d2 = *reinterpret_cast<const float2*>(dc + 8 * jj + 2 * t);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -499,21 +533,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
   auto pack = [&]() {
-    pack_all<BT>(p_a, s_acc);
-    pack_all<BT>(ds_a, dp_acc);
+    pack_all<BQ>(p_a, s_acc);
+    pack_all<BQ>(ds_a, dp_acc);
   };
   // Sᵀ and dPᵀ as two commit groups.
   auto issue_ss = [&](int u) {
     const int s = u % STAGES;
-    ss_product<HD>(s_acc, ka, qs + s * NB * SMALL_BOX);
+    ss_product<DK, BQ>(s_acc, ka, qs + s * NK * SMALL_BOX);
     wgmma_commit();
-    ss_product<HD>(dp_acc, va, dos + s * NB * SMALL_BOX);
+    ss_product<DV, BQ>(dp_acc, va, dos + s * NV * SMALL_BOX);
     wgmma_commit();
   };
   auto issue_rs = [&](int u) {
     const int s = u % STAGES;
-    rs_product<HD>(dv_acc, p_a, dos + s * NB * SMALL_BOX);
-    rs_product<HD>(dk_acc, ds_a, qs + s * NB * SMALL_BOX);
+    rs_product<DV, BQ>(dv_acc, p_a, dos + s * NV * SMALL_BOX);
+    rs_product<DK, BQ>(dk_acc, ds_a, qs + s * NK * SMALL_BOX);
   };
 
   // Step u: Sᵀ and dPᵀ of q tile i0 + u in this warpgroup's turn, then its
@@ -553,51 +587,53 @@ __global__ void __launch_bounds__(THREADS, 1)
   release(n_q - 1);
 
   const int r0 = n0 + wg * 64;
-  store_rows<HD>(dk + (head + r0) * HD, dk_acc, lrow, S - r0, t);
-  store_rows<HD>(dv + (head + r0) * HD, dv_acc, lrow, S - r0, t);
+  store_rows<DK>(dk + (head + r0) * DK, dk_acc, lrow, S - r0, t);
+  store_rows<DV>(dv + (head + r0) * DV, dv_acc, lrow, S - r0, t);
 }
 
-// A 3-D tensor map over a [BH, S, HD] bf16 tensor, boxes of `rows` x 64.
-template <int HD>
-int head_map(CUtensorMap* map, const void* base, int BH, int S, int rows) {
-  const uint64_t dims[3] = {(uint64_t)HD, (uint64_t)S, (uint64_t)BH};
-  const uint64_t strides[2] = {(uint64_t)HD * sizeof(bf16), (uint64_t)S * HD * sizeof(bf16)};
+// A 3-D tensor map over a [BH, S, hd] bf16 tensor, boxes of `rows` x 64.
+int head_map(CUtensorMap* map, const void* base, int BH, int S, int hd, int rows) {
+  const uint64_t dims[3] = {(uint64_t)hd, (uint64_t)S, (uint64_t)BH};
+  const uint64_t strides[2] = {(uint64_t)hd * sizeof(bf16), (uint64_t)S * hd * sizeof(bf16)};
   const uint32_t box[3] = {BOX_COLS, (uint32_t)rows, 1};
   return hopper_host::make_map(map, base, 3, dims, strides, box);
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
            const void* dout, void* dq, void* dk, void* dv, void* di, int BH, int S,
            cudaStream_t stream) {
-  // dq walks 64-row kv tiles past its own 128 q rows; dk/dv the other way.
+  // dq walks 64-row kv tiles past its own 128 q rows; dk/dv the other way,
+  // with BQ-row q tiles.
+  constexpr int BQ = dkv_rows<DK>();
   CUtensorMap q_big, do_big, k_small, v_small, k_big, v_big, q_small, do_small;
   const struct {
     CUtensorMap* map;
     const void* base;
-    int rows;
-  } maps[8] = {{&q_big, q, BM},   {&do_big, dout, BM}, {&k_small, k, BT}, {&v_small, v, BT},
-               {&k_big, k, BM},   {&v_big, v, BM},     {&q_small, q, BT}, {&do_small, dout, BT}};
+    int hd, rows;
+  } maps[8] = {{&q_big, q, DK, BM},     {&do_big, dout, DV, BM}, {&k_small, k, DK, BT},
+               {&v_small, v, DV, BT},   {&k_big, k, DK, BM},     {&v_big, v, DV, BM},
+               {&q_small, q, DK, BQ},   {&do_small, dout, DV, BQ}};
   for (const auto& m : maps) {
-    int err = head_map<HD>(m.map, m.base, BH, S, m.rows);
+    int err = head_map(m.map, m.base, BH, S, m.hd, m.rows);
     if (err) return err;
   }
-  constexpr int smem_dq = smem_bytes<HD>(2 * BM);
-  constexpr int smem_dkv = smem_bytes<HD>(2 * STAGES * BT);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<HD>,
+  constexpr int smem_dq = smem_bytes<DK, DV>(BT, 2 * BM);
+  constexpr int smem_dkv = smem_bytes<DK, DV>(BQ, 2 * STAGES * BQ);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dkv);
+  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<DK, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
   if (err != cudaSuccess) return (int)err;
   const int grid = BH * ((S + BM - 1) / BM);  // cta_work
-  attn_bwd_dq_kernel<HD><<<grid, THREADS, smem_dq, stream>>>(
+  attn_bwd_dq_kernel<DK, DV><<<grid, THREADS, smem_dq, stream>>>(
       q_big, do_big, k_small, v_small, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<bf16*>(dq),
       static_cast<float*>(di), S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkv_kernel<HD><<<grid, THREADS, smem_dkv, stream>>>(
+  attn_bwd_dkv_kernel<DK, DV><<<grid, THREADS, smem_dkv, stream>>>(
       k_big, v_big, q_small, do_small, static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S);
   return (int)cudaGetLastError();
@@ -605,18 +641,23 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace
 
-// q, k, v, o, do and dq, dk, dv [BH, S, hd] bf16; lse and the scratch di
-// [BH, S] f32; all contiguous and 16-byte aligned on one device, hd 64 or
-// 128.  Launches the dq kernel (which writes di) and then the dk/dv kernel
-// on `stream`, allocates nothing, does not synchronise; returns a
-// cudaError_t value (cudaGetLastError() after the launches).
+// q, k, dq, dk [BH, S, dk] and v, o, do, dv [BH, S, dv] bf16; lse and the
+// scratch di [BH, S] f32; all contiguous and 16-byte aligned on one device,
+// (dk, dv) one of (64, 64), (128, 128), (192, 128).  Launches the dq kernel
+// (which writes di) and then the dk/dv kernel on `stream`, allocates
+// nothing, does not synchronise; returns a cudaError_t value
+// (cudaGetLastError() after the launches).
 extern "C" int tpudra_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                                const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                               void* di, int BH, int S, int hd, void* stream) {
+                               void* di, int BH, int S, int dk_, int dv_, void* stream) {
   if (BH <= 0 || BH > 65535 || S <= 0 || (int64_t)BH * ((S + BM - 1) / BM) > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, S, st);
-  if (hd == 128) return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, S, st);
+  if (dk_ == 64 && dv_ == 64)
+    return launch<64, 64>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, S, st);
+  if (dk_ == 128 && dv_ == 128)
+    return launch<128, 128>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, S, st);
+  if (dk_ == 192 && dv_ == 128)
+    return launch<192, 128>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, S, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,6 +41,13 @@
 // Ragged S: rows and keys >= S come in as zeros; a key >= S only ever sits
 // after a valid query, so the causal mask drops it, and rows >= S are not
 // stored.  Any S >= 1 is taken.
+//
+// Widths: q and k are DK wide, v and o DV wide; instantiated at (64, 64),
+// (128, 128) and (192, 128), the last for latent attention (DeepSeek-V2's
+// 128 + 64 RoPE columns of q·kᵀ and 128 of v).  At DK 192 the ring has two
+// stages, not three: Q (48 KB) and three stages of K (48 KB) and V (32 KB)
+// would not fit in 227 KB.  The loader then waits, in its own turn, for the
+// other warpgroup to release the K tile two back, which costs some overlap.
 
 #include <math.h>
 
@@ -52,7 +59,11 @@ namespace {
 
 constexpr int BM = 128;  // q rows per CTA (2 consumer warpgroups x 64)
 constexpr int BN = 128;  // kv rows per tile (equal to BM: the diagonal tile is the last)
-constexpr int STAGES = 3;
+// Stages of the K and V ring at q·k width DK.
+template <int DK>
+__host__ __device__ constexpr int fwd_stages() {
+  return DK > 128 ? 2 : 3;
+}
 // Two warpgroups, both consumers; thread 0 also issues the loads.  A third
 // (producer) warpgroup makes the launch reserve registers for 384 threads,
 // and ptxas then compiles every thread against 168 (setmaxnreg does not lift
@@ -64,30 +75,33 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int BOX_ELEMS = 128 * BOX_COLS;  // one [128 x 64] box, 16 KB
 constexpr uint32_t BOX_BYTES = BOX_ELEMS * sizeof(bf16);
 
-template <int HD>
+template <int DK, int DV>
 constexpr int fwd_smem_bytes() {
-  return 1024 /* alignment slack */ + (1 + 2 * STAGES) * (HD / BOX_COLS) * (int)BOX_BYTES +
-         (1 + 4 * STAGES) * (int)sizeof(uint64_t);
+  constexpr int ST = fwd_stages<DK>();
+  return 1024 /* alignment slack */ +
+         ((1 + ST) * (DK / BOX_COLS) + ST * (DV / BOX_COLS)) * (int)BOX_BYTES +
+         (1 + 4 * ST) * (int)sizeof(uint64_t);
 }
 
-// s[64] = Q·Kᵀ for this warpgroup's 64 rows; q at its first row in box 0,
-// k at the stage's box 0.
-template <int HD>
+// s[64] = Q·Kᵀ over depth DK for this warpgroup's 64 rows; q at its first
+// row in box 0, k at the stage's box 0.
+template <int DK>
 __device__ __forceinline__ void qk_product(float* s, const bf16* q, const bf16* k) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     const int off = (kk / 4) * BOX_ELEMS + (kk % 4) * 16;
     wgmma_ss_n128(s, desc_kmajor(q + off), desc_kmajor(k + off), kk > 0);
   }
 }
 
-// o += P·V; p holds P as bf16 A operands (4 per 16 keys), v the stage's box 0.
-template <int HD>
+// o += P·V (DV columns); p holds P as bf16 A operands (4 per 16 keys), v
+// the stage's box 0.
+template <int DV>
 __device__ __forceinline__ void pv_product(float* o, const uint32_t* p, const bf16* v) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
     const uint64_t desc = desc_mnmajor(v + kk * 16 * BOX_COLS, BOX_BYTES);
-    if constexpr (HD == 128) {
+    if constexpr (DV == 128) {
       wgmma_rs_n128_mn(o, p + 4 * kk, desc, 1);
     } else {
       wgmma_rs_n64_mn(o, p + 4 * kk, desc, 1);
@@ -95,20 +109,22 @@ __device__ __forceinline__ void pv_product(float* o, const uint32_t* p, const bf
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     attn_fwd_kernel(const __grid_constant__ CUtensorMap tmap_q,
                     const __grid_constant__ CUtensorMap tmap_k,
                     const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ o,
                     float* __restrict__ lse, int S) {
-  constexpr int NB = HD / BOX_COLS;  // boxes per row of a tile
+  constexpr int NK = DK / BOX_COLS;  // boxes per row of a q or k tile
+  constexpr int NV = DV / BOX_COLS;  // boxes per row of a v tile
+  constexpr int STAGES = fwd_stages<DK>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   bf16* qs = reinterpret_cast<bf16*>(base);
-  bf16* ks = qs + NB * BOX_ELEMS;
-  bf16* vs = ks + STAGES * NB * BOX_ELEMS;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * NB * BOX_ELEMS);
+  bf16* ks = qs + NK * BOX_ELEMS;
+  bf16* vs = ks + STAGES * NK * BOX_ELEMS;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * NV * BOX_ELEMS);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + STAGES;
   uint64_t* k_empty = v_full + STAGES;
@@ -134,19 +150,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Loads, issued by thread 0 alone: tile j's K (or V) rows into stage
   // j % STAGES once both warpgroups have released the tile held there.
   const bool loader = threadIdx.x == 0;
-  auto load = [&](const CUtensorMap* map, bf16* tiles, uint64_t* full, uint64_t* empty, int j) {
+  auto load = [&](const CUtensorMap* map, bf16* tiles, int nb, uint64_t* full, uint64_t* empty,
+                  int j) {
     const int s = j % STAGES;
     mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-    mbar_expect_tx(&full[s], NB * BOX_BYTES);
+    mbar_expect_tx(&full[s], nb * BOX_BYTES);
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
-      tma_load_3d(tiles + (s * NB + b) * BOX_ELEMS, map, &full[s], b * BOX_COLS, j * BN, bh);
+    for (int b = 0; b < nb; ++b)
+      tma_load_3d(tiles + (s * nb + b) * BOX_ELEMS, map, &full[s], b * BOX_COLS, j * BN, bh);
   };
+  auto load_k = [&](int j) { load(&tmap_k, ks, NK, k_full, k_empty, j); };
+  auto load_v = [&](int j) { load(&tmap_v, vs, NV, v_full, v_empty, j); };
   if (loader) {
-    mbar_expect_tx(q_full, NB * BOX_BYTES);
+    mbar_expect_tx(q_full, NK * BOX_BYTES);
 #pragma unroll
-    for (int b = 0; b < NB; ++b) tma_load_3d(qs + b * BOX_ELEMS, &tmap_q, q_full, b * BOX_COLS, m0, bh);
-    load(&tmap_k, ks, k_full, k_empty, 0);
+    for (int b = 0; b < NK; ++b) tma_load_3d(qs + b * BOX_ELEMS, &tmap_q, q_full, b * BOX_COLS, m0, bh);
+    load_k(0);
   }
 
   const int wg = threadIdx.x / 128;
@@ -171,11 +190,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
 
   float s_acc[BN / 2];
-  float o_acc[HD / 2];
+  float o_acc[DV / 2];
   uint32_t p_a[BN / 4];
   float run_max[2] = {-INFINITY, -INFINITY}, run_sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) s_acc[i] = 0.f;
 
@@ -220,21 +239,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   float scale[2];
 
   // Block j (of n_kv + 1) starts by loading K of tile j + 1 and V of tile
-  // j.  Their stages held tiles j - 2 and j - 3, which both warpgroups have
-  // released: the other warpgroup's turn of block j - 1 came after its
-  // block j - 2 was done.
+  // j.  With three stages theirs held tiles j - 2 and j - 3, which both
+  // warpgroups have released: the other warpgroup's turn of block j - 1 came
+  // after its block j - 2 was done.  With two they held tiles j - 1 and j - 2,
+  // which the other warpgroup releases in its block j - 1 without waiting on
+  // this one, so the loader's wait ends.
 
   // Block 0: S of tile 0.
   mbar_wait(q_full, 0);
   mbar_wait(&k_full[0], 0);
   my_turn(true);
   if (loader) {
-    if (n_kv > 1) load(&tmap_k, ks, k_full, k_empty, 1);
-    load(&tmap_v, vs, v_full, v_empty, 0);
+    if (n_kv > 1) load_k(1);
+    load_v(0);
   }
   __syncwarp();  // warp 0 whole again before the warpgroup-wide wgmma
   wgmma_fence();
-  qk_product<HD>(s_acc, qa, ks);
+  qk_product<DK>(s_acc, qa, ks);
   wgmma_commit();
   your_turn(false);
   wgmma_wait<0>();
@@ -249,15 +270,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_wait(&k_full[s], (j / STAGES) & 1);
     my_turn(false);
     if (loader) {
-      if (j + 1 < n_kv) load(&tmap_k, ks, k_full, k_empty, j + 1);
-      load(&tmap_v, vs, v_full, v_empty, j);
+      if (j + 1 < n_kv) load_k(j + 1);
+      load_v(j);
     }
     __syncwarp();
     wgmma_fence();
-    qk_product<HD>(s_acc, qa, ks + s * NB * BOX_ELEMS);
+    qk_product<DK>(s_acc, qa, ks + s * NK * BOX_ELEMS);
     wgmma_commit();
     mbar_wait(&v_full[sp], ((j - 1) / STAGES) & 1);
-    pv_product<HD>(o_acc, p_a, vs + sp * NB * BOX_ELEMS);
+    pv_product<DV>(o_acc, p_a, vs + sp * NV * BOX_ELEMS);
     wgmma_commit();
     your_turn(false);
     wgmma_wait<1>();  // S done, P·V may still run
@@ -269,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     fence_regs(p_a);
     release(&v_empty[sp]);
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o_acc[i] *= scale[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) o_acc[i] *= scale[(i >> 1) & 1];
     pack_p();
   }
 
@@ -279,7 +300,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_wait(&v_full[sp], ((n_kv - 1) / STAGES) & 1);
     my_turn(false);
     wgmma_fence();
-    pv_product<HD>(o_acc, p_a, vs + sp * NB * BOX_ELEMS);
+    pv_product<DV>(o_acc, p_a, vs + sp * NV * BOX_ELEMS);
     wgmma_commit();
     your_turn(true);
     wgmma_wait<0>();
@@ -294,48 +315,50 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float l = quad_sum(run_sum[r]);
     if (row >= S) continue;
     const float inv = 1.f / l;
-    bf16* orow = o + (head + row) * HD;
+    bf16* orow = o + (head + row) * DV;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
           __floats2bfloat162_rn(o_acc[4 * j + 2 * r] * inv, o_acc[4 * j + 2 * r + 1] * inv);
     if (t == 0) lse[head + row] = run_max[r] + logf(l);
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
            cudaStream_t stream) {
   CUtensorMap maps[3];
-  const uint64_t dims[3] = {(uint64_t)HD, (uint64_t)S, (uint64_t)BH};
-  const uint64_t strides[2] = {(uint64_t)HD * sizeof(bf16), (uint64_t)S * HD * sizeof(bf16)};
-  const uint32_t box[3] = {BOX_COLS, 128, 1};
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
+    const uint64_t hd = i < 2 ? DK : DV;
+    const uint64_t dims[3] = {hd, (uint64_t)S, (uint64_t)BH};
+    const uint64_t strides[2] = {hd * sizeof(bf16), (uint64_t)S * hd * sizeof(bf16)};
+    const uint32_t box[3] = {BOX_COLS, 128, 1};
     int err = hopper_host::make_map(&maps[i], bases[i], 3, dims, strides, box);
     if (err) return err;
   }
-  constexpr int smem = fwd_smem_bytes<HD>();
-  cudaError_t err =
-      cudaFuncSetAttribute(attn_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = fwd_smem_bytes<DK, DV>();
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<DK, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BH, (S + BM - 1) / BM);
-  attn_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  attn_fwd_kernel<DK, DV><<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), S);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o [BH, S, hd] bf16 and lse [BH, S] f32, contiguous and 16-byte
-// aligned on one device; hd 64 or 128.  Launches on `stream`, allocates
-// nothing, does not synchronise; returns a cudaError_t value (the launch's
-// cudaGetLastError()).
+// q, k [BH, S, dk] and v, o [BH, S, dv] bf16 and lse [BH, S] f32,
+// contiguous and 16-byte aligned on one device; (dk, dv) one of (64, 64),
+// (128, 128), (192, 128).  Launches on `stream`, allocates nothing, does not
+// synchronise; returns a cudaError_t value (the launch's cudaGetLastError()).
 extern "C" int tpudra_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int BH, int S, int hd, void* stream) {
+                               int BH, int S, int dk, int dv, void* stream) {
   if (BH <= 0 || BH > 65535 || S <= 0 || (S + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64>(q, k, v, o, lse, BH, S, st);
-  if (hd == 128) return launch<128>(q, k, v, o, lse, BH, S, st);
+  if (dk == 64 && dv == 64) return launch<64, 64>(q, k, v, o, lse, BH, S, st);
+  if (dk == 128 && dv == 128) return launch<128, 128>(q, k, v, o, lse, BH, S, st);
+  if (dk == 192 && dv == 128) return launch<192, 128>(q, k, v, o, lse, BH, S, st);
   return (int)cudaErrorInvalidValue;
 }

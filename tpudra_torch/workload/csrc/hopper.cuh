@@ -8,8 +8,8 @@
 //     (128 bytes) wide, loaded with CU_TENSOR_MAP_SWIZZLE_128B, each box
 //     1024-byte aligned.  Rows of a box are 128 bytes apart, so eight rows
 //     (one swizzle atom) are 1024 bytes.
-//   - Boxes are 128 or 64 rows tall (16 or 8 KB); a tile of hd 128 columns
-//     is two boxes, the second holding columns 64..127.
+//   - Boxes are 128, 64 or 32 rows tall (16, 8 or 4 KB); a tile of hd 128
+//     columns is two boxes, the second holding columns 64..127 (hd 192: three).
 //   - K-major operand (the depth contiguous: x and E rows, q and k rows as
 //     the operands of q·kᵀ, k·qᵀ, do·vᵀ, v·doᵀ): descriptor SBO = 1024 bytes
 //     (next 8 rows), LBO unused; a k16 step inside the 128-byte row adds 32
@@ -20,8 +20,8 @@
 //     SBO = 1024 bytes (next 8 depth rows), LBO = the distance to the box
 //     holding the next 64 columns (the box size); a k16 step adds 16 rows =
 //     2048 bytes.
-//   - Accumulator of m64nN (f32, 128 threads; N/2 values a thread, N = 64,
-//     128 or 256): warp w of the warpgroup holds
+//   - Accumulator of m64nN (f32, 128 threads; N/2 values a thread, N = 32,
+//     64, 128 or 256): warp w of the warpgroup holds
 //     rows 16w..16w+15; lane = 4g + t holds, for each 8-column block j,
 //     d[4j+0..1] = (row g, cols 8j+2t, 8j+2t+1) and d[4j+2..3] = (row g+8,
 //     same cols).  A row's values sit in the four lanes of a quad.
@@ -207,6 +207,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[16] (+)= A·Bᵀ, m64n32k16, A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -12,6 +12,12 @@ Functions keep the JAX names so each has a visible counterpart.  Parameters
 are plain tensors; ``value_and_grad`` differentiates a loss with respect to
 a parameter tree, and the optimizers update params and moments in place.
 
+Beyond the JAX package, ``arch="deepseek_v2"`` is DeepSeek-V2's block on one
+device: multi-head latent attention with YaRN RoPE through the flash kernels
+at q·k width 192 and v width 128, a leading dense SwiGLU layer, then layers
+of a dropless top-k MoE with shared experts (``moe.moe_topk_ffn``) over the
+experts this device holds, and an untied head.
+
 Ported: the dense and Switch-MoE models on one device, with naive or flash
 attention, and the same models sharded over a ("dp", "sp", "tp") device
 mesh (``param_specs``, ``shard_params``, ``make_sharded_train_step``): each
@@ -23,22 +29,24 @@ through ``attn_fn``, as in the JAX package; the pipeline is ``pipeline``.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
-from tpudra_torch.workload.attn_kernel import HEAD_DIMS, flash_attention
+from tpudra_torch.workload.attn_kernel import WIDTHS, flash_attention
 from tpudra_torch.workload.ce_kernel import ce_chunk_sum, fused_ce_sum, matmul_f32
 from tpudra_torch.workload.convert import tree_leaves, tree_map, tree_unflatten
 from tpudra_torch.workload.device import resolve_device
-from tpudra_torch.workload.moe import MoEConfig, moe_ffn
+from tpudra_torch.workload.moe import MoEConfig, TopKConfig, moe_ffn, moe_topk_ffn, swiglu
 from tpudra_torch.workload.opt_kernel import bias_corrections, fused_adamw, init_bf16_moments
 from tpudra_torch.workload.parallel import (
     Groups,
@@ -89,6 +97,34 @@ class ModelConfig:
     moe_aux_weight: float = 0.01
     # Activation/matmul compute dtype: "bf16" or "f32".
     compute_dtype: str = "bf16"
+    # The block: "gpt" (the JAX package's decoder) or "deepseek_v2"
+    # (DeepSeek-V2: the fields below and an untied head; for it d_ff is the
+    # dense layers' SwiGLU width, num_experts the routed experts held here,
+    # the first of them, and n_heads the query heads).
+    arch: str = "gpt"
+    # Latent attention: kv compressed to kv_lora_rank; q·k heads of
+    # qk_nope_head_dim + qk_rope_head_dim (the RoPE part one for all heads),
+    # v heads of v_head_dim.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # RoPE with YaRN scaling (factor 1: plain RoPE).
+    rope_theta: float = 10000.0
+    rope_factor: float = 1.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
+    # Leading dense layers, then MoE layers: n_routed_experts routed by
+    # softmax top experts_per_token (weights not renormalised), experts of
+    # width moe_d_ff, and one shared SwiGLU of n_shared_experts × moe_d_ff.
+    first_k_dense_replace: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    experts_per_token: int = 1
+    n_routed_experts: int = 0
 
     def __post_init__(self):
         if self.attention not in ("auto", "naive", "flash", "splash"):
@@ -118,10 +154,38 @@ class ModelConfig:
             raise ValueError(
                 f"d_model {self.d_model} not divisible by n_heads {self.n_heads}"
             )
+        if self.arch not in ("gpt", "deepseek_v2"):
+            raise ValueError(f"arch must be gpt|deepseek_v2, got {self.arch!r}")
+        if self.arch == "deepseek_v2":
+            if min(self.kv_lora_rank, self.qk_nope_head_dim, self.qk_rope_head_dim,
+                   self.v_head_dim, self.moe_d_ff) <= 0 or self.qk_rope_head_dim % 2:
+                raise ValueError("deepseek_v2 needs positive latent, head and expert widths "
+                                 "and an even qk_rope_head_dim")
+            if not 0 < self.num_experts <= self.n_routed_experts:
+                raise ValueError(f"{self.num_experts} experts held of "
+                                 f"{self.n_routed_experts} routed")
+            if not 0 < self.experts_per_token <= self.n_routed_experts:
+                raise ValueError(f"experts_per_token {self.experts_per_token} of "
+                                 f"{self.n_routed_experts}")
+            if not 0 <= self.first_k_dense_replace <= self.n_layers:
+                raise ValueError(f"first_k_dense_replace {self.first_k_dense_replace} of "
+                                 f"{self.n_layers} layers")
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Width of a q·k head: gpt's head_dim; deepseek_v2's nope + rope."""
+        if self.arch == "deepseek_v2":
+            return self.qk_nope_head_dim + self.qk_rope_head_dim
+        return self.head_dim
+
+    @property
+    def n_moe_layers(self) -> int:
+        """deepseek_v2's layers after the leading dense ones."""
+        return self.n_layers - self.first_k_dense_replace
 
     @property
     def act_dtype(self) -> torch.dtype:
@@ -140,12 +204,22 @@ class ModelConfig:
             return True
         if self.attention == "naive":
             return False
+        widths = ((self.qk_head_dim, self.v_head_dim) if self.arch == "deepseek_v2"
+                  else (self.head_dim, self.head_dim))
         return (
             torch.device(device).type == "cuda"
             and torch.cuda.device_count() == 1
             and self.compute_dtype == "bf16"
-            and self.head_dim in HEAD_DIMS
+            and widths in WIDTHS
         )
+
+
+def one_device_only(cfg: ModelConfig, what: str) -> None:
+    """Raise for a block that ``what`` (a sharded, pipelined or ring path)
+    does not carry: deepseek_v2 runs on one device."""
+    if cfg.arch != "gpt":
+        raise ValueError(f"{what} carries the gpt block only; arch {cfg.arch!r} runs on "
+                         "one device (model.make_train_step)")
 
 
 def init_params(rng: torch.Generator, cfg: ModelConfig, device=None):
@@ -159,6 +233,16 @@ def init_params(rng: torch.Generator, cfg: ModelConfig, device=None):
     def dense(shape, scale):
         return torch.randn(shape, generator=rng, dtype=torch.float32, device=dev) * scale
 
+    if cfg.arch == "deepseek_v2":
+        tree: dict = {}
+        for name, (shape, scale) in deepseek_v2_shapes(cfg).items():
+            *outer, leaf = name.split(".")
+            node = tree
+            for key in outer:
+                node = node.setdefault(key, {})
+            node[leaf] = (dense(shape, scale) if scale else
+                          torch.ones(shape, dtype=torch.float32, device=dev))
+        return tree
     L, D, F_, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.num_experts
     H, hd = cfg.n_heads, cfg.head_dim
     s = D ** -0.5
@@ -183,6 +267,44 @@ def init_params(rng: torch.Generator, cfg: ModelConfig, device=None):
         },
         "ln_f": torch.ones((D,), dtype=torch.float32, device=dev),
     }
+
+
+def deepseek_v2_shapes(cfg: ModelConfig) -> dict:
+    """deepseek_v2's leaves, "outer.leaf" → (shape, init scale; None for a
+    norm's ones).  The dense and the MoE layers are stacked apart
+    ("dense_layers", "moe_layers"), each with a leading layer axis.  Gate
+    and up projections are one matrix, gate columns first (w_in [D, 2F])."""
+    D, H, V = cfg.d_model, cfg.n_heads, cfg.vocab
+    dn, dr, dv, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    F_, Fm, Fs = cfg.d_ff, cfg.moe_d_ff, cfg.n_shared_experts * cfg.moe_d_ff
+
+    def attention(key, L):
+        return {f"{key}.wq": ((L, D, H * (dn + dr)), D ** -0.5),
+                f"{key}.wkv_a": ((L, D, r + dr), D ** -0.5),
+                f"{key}.kv_norm": ((L, r), None),
+                f"{key}.wkv_b": ((L, r, H * (dn + dv)), r ** -0.5),
+                f"{key}.wo": ((L, H * dv, D), (H * dv) ** -0.5),
+                f"{key}.ln1": ((L, D), None), f"{key}.ln2": ((L, D), None)}
+
+    shapes = {"embed": ((V, D), 0.02)}
+    L = cfg.first_k_dense_replace
+    if L:
+        shapes |= attention("dense_layers", L)
+        shapes |= {"dense_layers.w_in": ((L, D, 2 * F_), D ** -0.5),
+                   "dense_layers.w_out": ((L, F_, D), F_ ** -0.5)}
+    L, E = cfg.n_moe_layers, cfg.num_experts
+    if L:
+        shapes |= attention("moe_layers", L)
+        shapes |= {"moe_layers.router": ((L, D, cfg.n_routed_experts), D ** -0.5),
+                   "moe_layers.experts_in": ((L, E, D, 2 * Fm), D ** -0.5),
+                   "moe_layers.experts_out": ((L, E, Fm, D), Fm ** -0.5)}
+        if Fs:
+            shapes |= {"moe_layers.shared_in": ((L, D, 2 * Fs), D ** -0.5),
+                       "moe_layers.shared_out": ((L, Fs, D), Fs ** -0.5)}
+    shapes["ln_f"] = ((D,), None)
+    shapes["head"] = ((V, D), 0.02)
+    return shapes
 
 
 def _rmsnorm(x, scale):
@@ -230,19 +352,8 @@ def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None, attn
     q, k, v = qkv[0], qkv[1], qkv[2]  # each [B, H, S, hd]
     if attn_fn is not None:
         attn = attn_fn(q, k, v).to(act)
-    elif cfg.use_flash_attention(S, x.device):
-        # q scaled in the activation dtype before the kernel, as the JAX
-        # model scales it before splash.
-        attn = flash_attention(q * (hd ** -0.5), k, v)
     else:
-        # Scores: the product in the activation dtype, then f32 and the
-        # scale; softmax in f32; the masked value is -1e30 (not -inf), as in
-        # JAX.
-        scores = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
-        mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-        scores = scores.masked_fill(~mask, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(act)
-        attn = torch.matmul(probs, v)  # [B, H, S, hd]
+        attn = _attend(cfg, q, k, v, hd ** -0.5)  # [B, H, S, hd]
     attn = attn.permute(0, 2, 1, 3).reshape(B * S, H * hd)
     x = x + reduce_from(attn @ p["wo"].to(act).reshape(H * hd, D), tp).view(B, S, D)
 
@@ -257,6 +368,157 @@ def _layer(cfg: ModelConfig, x, layer_params, groups: Groups | None = None, attn
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     h = reduce_from(h @ p["w2"].to(act), tp)
     return x + h.view(B, S, D), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _attend(cfg: ModelConfig, q, k, v, scale: float):
+    """Causal attention over q, k [B, H, S, dk] and v [B, H, S, dv] with
+    the softmax ``scale``: the flash kernels or the naive products."""
+    S = q.shape[2]
+    if cfg.use_flash_attention(S, q.device):
+        # q scaled in the activation dtype before the kernel, as the JAX
+        # model scales it before splash.
+        return flash_attention(q * scale, k, v)
+    # Scores: the product in the activation dtype, then f32 and the scale;
+    # softmax in f32; the masked value is -1e30 (not -inf), as in JAX.
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cfg.act_dtype)
+    return torch.matmul(probs, v)
+
+
+# -- DeepSeek-V2 (arch="deepseek_v2") ------------------------------------------
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention-magnitude correction for a context stretched by
+    ``factor``: 0.1·mscale·ln(factor) + 1 (1 when not stretched)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def softmax_scale(cfg: ModelConfig) -> float:
+    """deepseek_v2's softmax scale: the q·k width's 1/√d times
+    yarn_mscale(factor, mscale_all_dim)² where mscale_all_dim is set."""
+    scale = cfg.qk_head_dim ** -0.5
+    if cfg.rope_mscale_all_dim:
+        scale *= yarn_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim) ** 2
+    return scale
+
+
+def yarn_ramp(cfg: ModelConfig) -> tuple[int, int]:
+    """(low, high): the rotary pairs below low keep their frequency, those
+    above high are slowed by the factor, a linear ramp between (YaRN's
+    correction range for beta_fast and beta_slow rotations)."""
+    d, base, orig = cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_original_max_position
+
+    def dim(rotations):
+        return d * math.log(orig / (rotations * 2 * math.pi)) / (2 * math.log(base))
+
+    low, high = math.floor(dim(cfg.rope_beta_fast)), math.ceil(dim(cfg.rope_beta_slow))
+    return max(low, 0), min(high, d - 1)
+
+
+def rope_frequencies(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """θ_i of the qk_rope_head_dim / 2 rotary pairs (f64, made on
+    ``device``): base^(−2i/d), divided by the factor past YaRN's ramp."""
+    d, f = cfg.qk_rope_head_dim, cfg.rope_factor
+    i = torch.arange(d // 2, dtype=torch.float64, device=device)
+    extra = cfg.rope_theta ** (-2 * i / d)
+    if f <= 1.0:
+        return extra
+    low, high = yarn_ramp(cfg)
+    ramp = ((i - low) / max(high - low, 1e-3)).clamp(0, 1)
+    return extra / f * ramp + extra * (1 - ramp)
+
+
+def rope_tables(cfg: ModelConfig, S: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin [S, d/2] (f32, made on ``device``: no copy from the host)
+    of position t·θ_i, t from 0, times YaRN's ratio yarn_mscale(factor,
+    mscale) / yarn_mscale(factor, mscale_all_dim)."""
+    f = cfg.rope_factor
+    mag = yarn_mscale(f, cfg.rope_mscale) / yarn_mscale(f, cfg.rope_mscale_all_dim)
+    t = torch.arange(S, dtype=torch.float64, device=device)
+    angle = t[:, None] * rope_frequencies(cfg, device)[None]
+    return (angle.cos() * mag).float(), (angle.sin() * mag).float()
+
+
+def apply_rope(x, cos, sin):
+    """Rotate each pair (x[2i], x[2i+1]) of x's last dim by the angle whose
+    cos and sin broadcast against x[..., i], in f32; x's dtype back."""
+    xf = x.float().unflatten(-1, (-1, 2))
+    x0, x1 = xf[..., 0], xf[..., 1]
+    return torch.stack((x0 * cos - x1 * sin, x0 * sin + x1 * cos), dim=-1).flatten(-2).to(x.dtype)
+
+
+def _mla(cfg: ModelConfig, x, p, rope):
+    """x + latent attention of x [B, S, D]: q = h·Wq ([nope | rope] a head),
+    c = h·Wkv_a ([latent | k_pe]), [k_nope | v] = rmsnorm(latent)·Wkv_b,
+    RoPE on q's rope part and on k_pe (one for all heads), causal attention
+    at q·k width nope + rope and v width v_head_dim, then ·Wo.  ``rope``:
+    (cos, sin) of ``rope_tables``."""
+    B, S, D = x.shape
+    H, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    act = cfg.act_dtype
+    with record_function("mla.attention"):
+        h = _rmsnorm(x, p["ln1"]).reshape(B * S, D)
+        q = (h @ p["wq"].to(act)).view(B, S, H, dn + dr)
+        c = h @ p["wkv_a"].to(act)
+        kv = (_rmsnorm(c[:, :r], p["kv_norm"]) @ p["wkv_b"].to(act)).view(B, S, H, dn + dv)
+        cos, sin = rope
+        q_pe = apply_rope(q[..., dn:], cos[:, None], sin[:, None])
+        k_pe = apply_rope(c[:, r:].view(B, S, dr), cos, sin)
+        q = torch.cat((q[..., :dn], q_pe), dim=-1).transpose(1, 2)
+        k = torch.cat((kv[..., :dn], k_pe[:, :, None].expand(B, S, H, dr)), dim=-1).transpose(1, 2)
+        o = _attend(cfg, q, k, kv[..., dn:].transpose(1, 2), softmax_scale(cfg))
+        o = o.transpose(1, 2).reshape(B * S, H * dv) @ p["wo"].to(act)
+    return x + o.view(B, S, D)
+
+
+def topk_config(cfg: ModelConfig) -> TopKConfig:
+    return TopKConfig(d_model=cfg.d_model, d_ff=cfg.moe_d_ff, num_experts=cfg.num_experts,
+                      n_routed=cfg.n_routed_experts, top_k=cfg.experts_per_token,
+                      shared_d_ff=cfg.n_shared_experts * cfg.moe_d_ff,
+                      compute_dtype=cfg.compute_dtype)
+
+
+_TOPK_LEAVES = ("router", "experts_in", "experts_out", "shared_in", "shared_out")
+
+
+def _ds_layer(cfg: ModelConfig, x, p, moe: bool, rope):
+    """One deepseek_v2 layer: latent attention, then a dense SwiGLU FFN or
+    the top-k MoE FFN.  Returns (x, aux; zero for a dense layer)."""
+    B, S, D = x.shape
+    x = _mla(cfg, x, p, rope)
+    h = _rmsnorm(x, p["ln2"])
+    if moe:
+        y, aux, _ = moe_topk_ffn({k: p[k] for k in _TOPK_LEAVES if k in p}, h, topk_config(cfg))
+        return x + y, aux
+    act = cfg.act_dtype
+    y = swiglu(h.reshape(B * S, D), p["w_in"].to(act), p["w_out"].to(act))
+    return x + y.view(B, S, D), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ds_backbone(params, tokens, cfg: ModelConfig):
+    """deepseek_v2's (hidden states [B, S, D], mean aux over its MoE
+    layers): the embedding (no position table), the dense layers, then the
+    MoE layers, each under cfg.remat."""
+    x = params["embed"][tokens].to(cfg.act_dtype)
+    # Outside the layers' checkpoints: constants to them.
+    rope = rope_tables(cfg, tokens.shape[1], x.device)
+    auxs = []
+    for key, moe, n in (("dense_layers", False, cfg.first_k_dense_replace),
+                        ("moe_layers", True, cfg.n_moe_layers)):
+        if not n:
+            continue
+        layer = _remat(cfg, partial(_ds_layer, cfg, moe=moe, rope=rope))
+        per_layer = {k: v.unbind(0) for k, v in params[key].items()}
+        for i in range(n):
+            x, aux = layer(x, {k: v[i] for k, v in per_layer.items()})
+            if moe:
+                auxs.append(aux)
+    aux = torch.stack(auxs).mean() if auxs else torch.zeros((), device=x.device)
+    return _rmsnorm(x, params["ln_f"]), aux
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, groups: Groups | None = None,
@@ -283,7 +545,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 def remat_layer_body(cfg: ModelConfig, groups: Groups | None = None, attn_fn=None):
     """The per-layer body ``(x, layer_params) -> (x, aux)`` with cfg.remat
     applied (shared by the layer loop and the pipeline's stages)."""
-    layer_body = partial(_layer, cfg, groups=groups, attn_fn=attn_fn)
+    return _remat(cfg, partial(_layer, cfg, groups=groups, attn_fn=attn_fn))
+
+
+def _remat(cfg: ModelConfig, layer_body):
+    """``layer_body`` under cfg.remat."""
     if cfg.remat == "none":
         return layer_body
     if cfg.remat == "full":
@@ -299,6 +565,10 @@ def backbone_and_aux(params, tokens, cfg: ModelConfig, groups: Groups | None = N
     """tokens [B, S] int (at positions ``pos_offset`` on) → (hidden states
     [B, S, D] in cfg.act_dtype, mean per-layer MoE aux loss — zero for dense
     models)."""
+    if cfg.arch == "deepseek_v2":
+        if groups is not None or attn_fn is not None or pos_offset:
+            one_device_only(cfg, "a sharded, ring or offset backbone")
+        return _ds_backbone(params, tokens, cfg)
     x = embed_tokens(params, tokens, cfg, groups, pos_offset)
     layer = remat_layer_body(cfg, groups, attn_fn)
     # unbind (not indexing) so the backward stacks the per-layer grads once.
@@ -318,7 +588,7 @@ def backbone(params, tokens, cfg: ModelConfig):
 def forward(params, tokens, cfg: ModelConfig):
     """tokens [B, S] int → logits [B, S, V] float32."""
     x = backbone(params, tokens, cfg)
-    return matmul_f32(x, params["embed"].to(cfg.act_dtype).t())
+    return matmul_f32(x, head_weight(params).to(cfg.act_dtype).t())
 
 
 def loss_fn(params, tokens, cfg: ModelConfig, groups: Groups | None = None, attn_fn=None):
@@ -354,11 +624,17 @@ def ce_rows_sum(params, xs, targets, cfg: ModelConfig, tp=None):
     slice of D and all-reducing them; the sums meet in one all-reduce.  xs
     is the same on every tp rank: f (``copy_to``) sums the gradients of the
     shares, each zero off its own rows."""
-    embed = params["embed"]
+    embed = head_weight(params)
     if tp is not None:
         embed = gather(embed, tp, dim=1, partial_grads=True)
         xs, targets = _row_share(copy_to(xs, tp), targets, tp)
     return reduce_from(_ce_sum(embed, xs, targets, cfg), tp)
+
+
+def head_weight(params):
+    """The head's [V, D] matrix: the untied "head" where the tree has one
+    (deepseek_v2), else the embedding."""
+    return params["head"] if "head" in params else params["embed"]
 
 
 def _row_share(xs, targets, group):
@@ -484,6 +760,7 @@ def param_specs(cfg: ModelConfig):
     num_experts), router replicated."""
     from torch.distributed.tensor import Replicate, Shard
 
+    one_device_only(cfg, "param_specs")
     R = Replicate()
 
     def tp(dim):
@@ -533,6 +810,7 @@ def sharded_value_and_grad(cfg: ModelConfig, mesh):
     """``fn(dparams, dtokens) -> (loss, grads)`` for the model sharded over
     ``mesh``: the loss of the global batch, and this rank's local shard of
     each gradient, averaged over dp."""
+    one_device_only(cfg, "the sharded step")
     sp = mesh.get_group("sp") if "sp" in mesh.mesh_dim_names else None
     # The whole sequence on every sp rank: the model runs unsharded over sp.
     groups = Groups.from_mesh(mesh, ("dp", "tp"))

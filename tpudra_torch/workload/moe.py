@@ -1,5 +1,6 @@
 """Switch-style top-1 mixture-of-experts FFN: the counterpart of
-``tpudra/workload/moe.py``.
+``tpudra/workload/moe.py``; and DeepSeek-V2's dropless top-k FFN with shared
+experts (``moe_topk_ffn``), which the JAX package does not have.
 
 The same Mesh-TensorFlow dispatch/combine formulation: routing builds a
 [tokens, experts, capacity] dispatch tensor, the expert FFNs run batched
@@ -29,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from tpudra_torch.workload.device import resolve_device
 from tpudra_torch.workload.parallel import (
@@ -170,3 +172,174 @@ def shard_moe_params(params, mesh, ep_axis: str = "ep"):
     sub = mesh[ep_axis]
     specs = expert_specs()
     return {k: distribute_local(v, sub, specs[k]) for k, v in params.items()}
+
+
+# -- DeepSeek-V2's top-k FFN ---------------------------------------------------
+
+
+@dataclass
+class TopKConfig:
+    d_model: int = 128
+    # Each routed expert's SwiGLU width.
+    d_ff: int = 64
+    # The routed experts held here: experts first .. first + num_experts − 1
+    # of the n_routed that the router scores (an expert-parallel share).
+    num_experts: int = 4
+    n_routed: int = 8
+    top_k: int = 2
+    # The shared experts' SwiGLU width (0: none).
+    shared_d_ff: int = 64
+    compute_dtype: str = "bf16"
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bf16" else torch.float32
+
+
+def _gated(gu):
+    """silu(g) ⊙ u for gu = [g | u] [N, 2F]."""
+    f = gu.shape[1] // 2
+    return F.silu(gu[:, :f]) * gu[:, f:]
+
+
+def swiglu(h, w_in, w_out):
+    """(silu(h·Wg) ⊙ (h·Wu))·Wd for h [N, D], w_in = [Wg | Wu] [D, 2F] and
+    w_out = Wd [F, D]: two 2-D products."""
+    return _gated(h @ w_in) @ w_out
+
+
+def grouped_mm(x, w, offs):
+    """Rows [offs[e−1], offs[e]) of x [R, K] times w[e] [K, N], for each of
+    the G groups of w [G, K, N]; offs [G] int32 on x's device, cumulative.
+    Rows past offs[−1] are not read and come out zero.  CUDA tensors take
+    ``torch._grouped_mm`` (the card's grouped GEMM, offsets read on the
+    device, no host sync); CPU tensors the plain loop, which reads the
+    offsets on the host."""
+    if x.is_cuda:
+        return torch._grouped_mm(x, w, offs=offs)
+    parts, start = [], 0
+    for e, end in enumerate(offs.tolist()):
+        parts.append(x[start:end] @ w[e])
+        start = end
+    parts.append(x.new_zeros((x.shape[0] - start, w.shape[-1])))
+    return torch.cat(parts)
+
+
+def expert_products(xs, experts_in, experts_out, offs):
+    """Each held expert's SwiGLU over its rows of xs [R, D] (rows in expert
+    order, ``offs`` cumulative): two grouped products and the gating between
+    them.  Rows past offs[−1] come out zero or are never read."""
+    return grouped_mm(_gated(grouped_mm(xs, experts_in, offs)), experts_out, offs)
+
+
+class _Dispatch(torch.autograd.Function):
+    """Rows of h [T, D] in expert order: out[r] = h[token[r]] where
+    valid[r], else 0.  The backward gathers instead of scattering: token t's
+    gradient is the sum over its k slots of the rows ``inv`` [T, k] points
+    at (row R, one past the buffer, is zero), in f32 and in slot order, so
+    that it repeats bit for bit."""
+
+    @staticmethod
+    def forward(ctx, h, token, valid, inv):
+        ctx.save_for_backward(valid, inv)
+        return torch.where(valid[:, None], h[token], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        valid, inv = ctx.saved_tensors
+        g = torch.cat((torch.where(valid[:, None], g, 0), g.new_zeros((1, g.shape[1]))))
+        total = g[inv[:, 0]].float()
+        for j in range(1, inv.shape[1]):
+            total += g[inv[:, j]].float()
+        return total.to(g.dtype), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y [T, D] (f32) = Σ over token t's k slots of gate × out row: the
+    gate-weighted expert rows out [R, D] back in token order, summed in
+    slot order (no atomics).  gate [R] f32 is 0 where a row is not valid."""
+
+    @staticmethod
+    def forward(ctx, out, gate, token, valid, inv):
+        ctx.save_for_backward(out, gate, token, valid)
+        weighted = torch.cat((torch.where(valid[:, None], out, 0).float() * gate[:, None],
+                              out.new_zeros((1, out.shape[1]), dtype=torch.float32)))
+        y = weighted[inv[:, 0]].clone()
+        for j in range(1, inv.shape[1]):
+            y += weighted[inv[:, j]]
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        out, gate, token, valid = ctx.saved_tensors
+        g = torch.where(valid[:, None], gy[token], 0)  # [R, D] f32
+        gout = (g * gate[:, None]).to(out.dtype)
+        ggate = (g * out.float()).sum(-1)
+        return gout, ggate, None, None, None
+
+
+def route_topk(h, router, cfg: TopKConfig, B: int, first: int = 0):
+    """Routing of h [T, D] (T = B·S, rows batch-major): the probabilities
+    softmax(h·Wr) in f32 over all n_routed experts, each token's top_k
+    (weights the probabilities themselves, not renormalised), and the
+    (token, slot) pairs whose expert is held here, ordered by expert on the
+    device.  Returns a dict: ``offs`` [E] int32 (cumulative rows per held
+    expert), ``rows`` [E] (rows per held expert), ``token``/``gate``/
+    ``valid`` [R] for the buffer's rows (R = T·min(k, E), enough for every
+    token to reach min(k, E) held experts), ``inv`` [T, k] (each slot's
+    buffer row, R where its expert is not held), ``aux`` (DeepSeek's
+    sequence-wise balance loss over all experts: mean over rows of
+    Σ_e (n_routed / (S·k))·count_e · mean_s p_e)."""
+    T, _ = h.shape
+    S, E, k = T // B, cfg.num_experts, cfg.top_k
+    R = T * min(k, E)
+    probs = torch.softmax(h.float() @ router, dim=-1)  # [T, n_routed]
+    top_p, top_e = probs.topk(k, dim=-1)
+    counts = torch.zeros((B, cfg.n_routed), device=h.device).scatter_add_(
+        1, top_e.view(B, S * k), torch.ones((B, S * k), device=h.device))
+    aux = (counts * (cfg.n_routed / (S * k)) * probs.view(B, S, -1).mean(1)).sum(1).mean()
+    local = top_e.view(-1) - first
+    held = (local >= 0) & (local < E)
+    key = torch.where(held, local, E)  # the experts not held sort last
+    order = torch.argsort(key, stable=True)
+    # Counts by scatter, not bincount: bincount reads its size on the host.
+    per = torch.zeros(E + 1, dtype=torch.int64, device=h.device).scatter_add_(
+        0, key, torch.ones_like(key))
+    offs = per[:E].cumsum(0).to(torch.int32)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(T * k, device=h.device)
+    order = order[:R]
+    return {"offs": offs, "rows": per[:E], "token": order // k,
+            "gate": torch.where(held[order], top_p.view(-1)[order], 0.0),
+            "valid": held[order], "inv": torch.where(held, pos, R).view(T, k), "aux": aux}
+
+
+def dispatch(h, routed):
+    """The buffer of rows [R, D] that ``route_topk``'s ``routed`` orders by
+    expert: h's row of each held (token, slot) pair, zeros past them."""
+    return _Dispatch.apply(h, routed["token"], routed["valid"], routed["inv"])
+
+
+def moe_topk_ffn(params, x, cfg: TopKConfig, first: int = 0):
+    """x [B, S, D] → (y [B, S, D] in x's dtype, aux, rows [num_experts]):
+    DeepSeek-V2's MoE FFN over the routed experts held here (``first`` on)
+    plus the shared expert; dropless, every (token, held expert) pair is
+    computed.  ``params``: router [D, n_routed] (f32 product), experts_in
+    [E, D, 2F], experts_out [E, F, D], and shared_in, shared_out where
+    cfg.shared_d_ff.  The experts run as grouped products over their rows,
+    ordered by expert on the device (no host sync); ``rows`` counts each
+    held expert's rows."""
+    B, S, D = x.shape
+    act = cfg.act_dtype
+    h = x.reshape(B * S, D)
+    with record_function("moe.route"):
+        rt = route_topk(h, params["router"], cfg, B, first)
+        xs = dispatch(h, rt)
+    with record_function("moe.experts"):
+        out = expert_products(xs, params["experts_in"].to(act), params["experts_out"].to(act),
+                              rt["offs"])
+    y = _Combine.apply(out, rt["gate"], rt["token"], rt["valid"], rt["inv"])
+    if cfg.shared_d_ff:
+        with record_function("moe.shared"):
+            y = y + swiglu(h, params["shared_in"].to(act), params["shared_out"].to(act)).float()
+    return y.to(x.dtype).view(B, S, D), rt["aux"], rt["rows"]

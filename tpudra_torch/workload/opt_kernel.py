@@ -28,7 +28,11 @@ def bias_corrections(count: torch.Tensor, b1: float, b2: float) -> torch.Tensor:
     """[1 - b1**count, 1 - b2**count] in f32 from the int32 step count, on
     the count's device (JAX: ``1 - b ** count.astype(jnp.float32)``)."""
     cf = count.float()
-    base = torch.tensor([b1, b2], dtype=torch.float32, device=count.device)
+    # Filled on the device: a tensor made from host values (torch.tensor,
+    # or an element set from a Python float) is copied to the card with a
+    # wait for the stream, a host sync every step.
+    base = torch.stack([torch.full((), b, dtype=torch.float32, device=count.device)
+                        for b in (b1, b2)])
     return 1.0 - base ** cf
 
 

@@ -36,6 +36,7 @@ from tpudra_torch.workload.model import (
     _rmsnorm,
     ce_head,
     embed_tokens,
+    one_device_only,
     param_specs,
     remat_layer_body,
     value_and_grad,
@@ -166,6 +167,7 @@ def pipelined_backbone(params, tokens, cfg: ModelConfig, mesh, num_microbatches:
     rank's hidden states [M·B/M/dp, S, D], its rows of each microbatch in
     microbatch order; the mean MoE aux loss, zero for dense models), the
     layer stack pipelined over ``pp_axis``.  ``params``: ``stage_params``."""
+    one_device_only(cfg, "the pipeline")
     groups, rows = _setup(tokens, mesh, num_microbatches, pp_axis, dp_axis)
     return _schedule(params, rows, cfg, groups)
 
@@ -177,6 +179,7 @@ def pipelined_loss_fn(params, tokens, cfg: ModelConfig, mesh, num_microbatches: 
     aux is the per-microbatch average (see the module docstring).  This
     rank's gradients are those of its dp shard (average them over dp:
     ``pipelined_value_and_grad``)."""
+    one_device_only(cfg, "the pipeline")
     groups, rows = _setup(tokens, mesh, num_microbatches, pp_axis, dp_axis)
     x, aux = _schedule(params, rows, cfg, groups)
     loss = mean_over(ce_head(params, x, rows.reshape(x.shape[0], -1), cfg, Groups(tp=groups.tp)),
@@ -190,6 +193,7 @@ def pipelined_value_and_grad(cfg: ModelConfig, mesh, num_microbatches: int):
     """``fn(params, tokens) -> (loss, grads)`` for ``stage_params`` over a
     mesh with "pp" and "dp" dims: the loss of the global batch, and this
     rank's gradients averaged over dp."""
+    one_device_only(cfg, "the pipeline")
     dp = mesh.get_group("dp")
     grad_fn = value_and_grad(pipelined_loss_fn)
 

@@ -35,6 +35,7 @@ from tpudra_torch.workload.model import (
     ModelConfig,
     backbone_and_aux,
     ce_rows_sum,
+    one_device_only,
     value_and_grad,
 )
 from tpudra_torch.workload.parallel import (
@@ -214,6 +215,7 @@ def ring_loss_fn(params, tokens, cfg: ModelConfig, mesh, sp_axis: str = "sp"):
     (dp, sp) block of it through every layer.  Returns the loss of the
     global batch; this rank's gradients are a part (see
     ``ring_value_and_grad``)."""
+    one_device_only(cfg, "ring attention")
     groups = _ring_groups(mesh, sp_axis)
     n_sp, me = size_and_rank(groups.sp)
     B, S = tokens.shape
@@ -232,6 +234,7 @@ def ring_value_and_grad(cfg: ModelConfig, mesh):
     computes on its (dp, sp) block of the tokens; the loss of the global
     batch, and this rank's local shard of each gradient, summed over sp and
     averaged over dp."""
+    one_device_only(cfg, "ring attention")
     groups = _ring_groups(mesh, "sp")
     grad_fn = value_and_grad(_block_loss)
 
