@@ -45,8 +45,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   8. moe:     bench.py bench_moe's configuration at full width (605M params,
               8 experts, batch 8, seq 1024, splash, remat "dots", chunked CE,
               tree AdamW); 1 warm-up and 3 timed steps, then profiled;
-              bench_moe's accounting recomputed here, plus the FLOPs of the
-              dispatch and combine products it leaves out
+              bench_moe's accounting recomputed here, plus the bytes the
+              index dispatch and combine move, timed alone, and the tokens
+              the routing keeps
   9. ring:    ring attention's block schedule in one process
               (ringattention.ring_blocks, the code each rank of the ring
               runs) at the long step's attention shape in 8 blocks of 1024:
@@ -1004,10 +1005,12 @@ def moe_accounting(moe, cfg, batch: int, n_params: int) -> dict:
     """bench.py bench_moe's accounting, recomputed: active params (one
     expert FFN per layer), the model FLOPs on them, and the hardware FLOPs
     with the capacity padding the expert products really compute.  Plus
-    what that accounting leaves out: the dispatch (tec,td->ecd) and combine
-    (tec,ecd->td) products, 2·T·E·C·D each over the T = batch·seq tokens the
-    model routes, 2 in the forward and 3 in the backward (dispatch carries
-    no gradient, combine one through the gate)."""
+    what that accounting leaves out: the bytes of bf16 rows the index
+    dispatch and combine move over the T = batch·seq tokens the model
+    routes, each row read once and written once: forward, the E·C buffer
+    rows gathered and the T output rows; backward, the T token rows and the
+    E·C buffer rows gathered back, and the T rows of gy and of the expert
+    outputs the gate's gradient reads."""
     tokens_per_step = batch * (cfg.max_seq - 1)
     ffn_params_per_expert = 2 * cfg.d_model * cfg.d_ff
     n_active = n_params - cfg.n_layers * (cfg.num_experts - 1) * ffn_params_per_expert
@@ -1022,30 +1025,35 @@ def moe_accounting(moe, cfg, batch: int, n_params: int) -> dict:
         "model_flops": model_flops,
         "computed_flops": model_flops + 6 * ffn_params_per_expert * padded_extra * cfg.n_layers,
         "capacity": C, "capacity_padding_overhead_pct": 100.0 * padded_extra / routed,
-        "dispatch_combine_flops": 5 * 2 * T * cfg.num_experts * C * cfg.d_model * cfg.n_layers,
+        "dispatch_combine_bytes": (4 * cfg.num_experts * C + 6 * T) * cfg.d_model * 2 * cfg.n_layers,
     }
 
 
-def time_dispatch_combine(torch, cfg, batch: int, capacity: int) -> float:
-    """ms of one layer's 5 dispatch and combine products (moe.moe_ffn's two
-    aten.mm and the three of their backward) at the step's shapes, bf16."""
-    T, EC, D = batch * cfg.max_seq, cfg.num_experts * capacity, cfg.d_model
+def time_dispatch_combine(torch, moe, cfg, batch: int, capacity: int):
+    """ms of one layer's index dispatch and combine (moe.switch_dispatch and
+    moe.switch_combine), forward and backward, at the step's shapes in
+    bf16, on the routing of random tokens by a random router; and that
+    routing's ``rows`` counter (tokens kept per expert)."""
+    T, E, D = batch * cfg.max_seq, cfg.num_experts, cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(8)
-    slot = torch.randint(0, EC, (T,), generator=gen, device="cuda")
-    dispatch = (slot[:, None] == torch.arange(EC, device="cuda")).bfloat16()  # [T, E*C]
-    combine = dispatch * torch.rand(T, 1, generator=gen, device="cuda").bfloat16()
-    tokens, dy = (torch.randn(T, D, generator=gen, device="cuda").bfloat16() for _ in range(2))
-    expert_out, d_in = (torch.randn(EC, D, generator=gen, device="cuda").bfloat16()
-                        for _ in range(2))
+    mcfg = moe.MoEConfig(d_model=D, d_ff=cfg.d_ff, num_experts=E)
 
-    def products():
-        dispatch.t() @ tokens  # expert_in
-        combine @ expert_out  # y
-        dispatch @ d_in  # d tokens
-        dy @ expert_out.t()  # d combine
-        combine.t() @ dy  # d expert_out
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
 
-    return time_ms(torch, products, iters=5)
+    tokens, dy = randn(T, D).requires_grad_(), randn(T, D)
+    router = torch.randn(D, E, generator=gen, device="cuda") * D ** -0.5
+    with torch.no_grad():
+        rt = moe.switch_route(tokens, router, mcfg, batch, capacity, 0, E)
+    gate = rt["gate"].bfloat16().requires_grad_()
+    expert_out, d_in = randn(E * capacity, D).requires_grad_(), randn(E * capacity, D)
+
+    def dispatch_and_combine():
+        expert_in = moe.switch_dispatch(tokens, rt)
+        y = moe.switch_combine(expert_out, gate, rt)
+        torch.autograd.grad((expert_in, y), (tokens, expert_out, gate), (d_in, dy))
+
+    return time_ms(torch, dispatch_and_combine, iters=5), rt["rows"]
 
 
 def phase_moe(torch, drive, model, moe) -> dict:
@@ -1055,18 +1063,21 @@ def phase_moe(torch, drive, model, moe) -> dict:
     launches, step_s, n_params = drive(label, cfg, MOE_BATCH, TIMED_STEPS, profile=True)
     acct = moe_accounting(moe, cfg, MOE_BATCH, n_params)
     expect_attention_launches(label, cfg, launches, 1 + TIMED_STEPS)
-    dc = acct["dispatch_combine_flops"]
-    dc_ms = time_dispatch_combine(torch, cfg, MOE_BATCH, acct["capacity"]) * cfg.n_layers
-    log(f"{label}: the 5 dispatch/combine products alone at the step's shapes: {dc_ms:.2f} ms "
-        f"a step ({dc_ms / (step_s * 1e3) * 100:.1f}% of the step, {dc / dc_ms / 1e9:.0f} TFLOP/s)")
+    dc = acct["dispatch_combine_bytes"]
+    layer_ms, rows = time_dispatch_combine(torch, moe, cfg, MOE_BATCH, acct["capacity"])
+    dc_ms = layer_ms * cfg.n_layers
+    T = MOE_BATCH * cfg.max_seq
+    log(f"{label}: the index dispatch and combine alone, forward and backward, at the step's "
+        f"shapes: {dc_ms:.3f} ms a step ({dc_ms / (step_s * 1e3) * 100:.2f}% of the step; "
+        f"{dc / 1e9:.3f} GB of rows, {dc / dc_ms / 1e6:.0f} GB/s); tokens kept per expert "
+        f"{rows.tolist()}, {int(rows.sum())} of {T} ({float(rows.sum()) / T * 100:.2f}%)")
     log(f"{label}: params_m={acct['params_m']:.1f} active_params_m={acct['active_params_m']:.1f} "
         f"capacity={acct['capacity']} capacity_padding_overhead_pct="
         f"{acct['capacity_padding_overhead_pct']:.1f} model_tflop_per_step="
         f"{acct['model_flops'] / 1e12:.3f} model_tflops_per_s={acct['model_flops'] / step_s / 1e12:.1f} "
         f"hw_tflops_per_s={acct['computed_flops'] / step_s / 1e12:.1f} "
         f"mfu_pct={acct['model_flops'] / step_s / PEAK_BF16_FLOPS * 100:.1f}; dispatch/combine "
-        f"products {dc / 1e12:.3f} TFLOP a step ({dc / acct['model_flops'] * 100:.0f}% of the "
-        f"model count; {dc / 1e12 / (PEAK_BF16_FLOPS / 1e15):.2f} ms at the bf16 peak)")
+        f"rows {dc / 1e9:.3f} GB a step ({dc / PEAK_BYTES * 1e3:.3f} ms at the HBM peak)")
     return launches
 
 

@@ -119,6 +119,123 @@ def test_moe_ffn_matches_jax(name):
     _assert_close(grads, want, grad_tol)
 
 
+def _dense_moe_ffn(params, x, cfg):
+    """The Mesh-TensorFlow formulation, as the JAX package computes it, on
+    one device: [T, E, C] dispatch and combine masks in the activation dtype
+    and the tokens moved by products over them.  The oracle of moe_ffn's
+    index dispatch and combine."""
+    import torch.nn.functional as F
+
+    B, S, D = x.shape
+    E, T = cfg.num_experts, B * S
+    C = cfg.capacity(T)
+    tokens = x.reshape(T, D)
+    probs = torch.softmax(tokens.float() @ params["router"], dim=-1)
+    expert = probs.argmax(dim=-1)
+    gate = probs.gather(1, expert[:, None])[:, 0]
+    onehot = (expert[:, None] == torch.arange(E)).float()
+    position = tmoe._position(onehot.view(B, S, E), None, None).reshape(T, E)
+    keep = (position < C) * onehot
+    slot = position.sum(-1).long()
+    act = cfg.act_dtype
+    pos_onehot = (slot[:, None] == torch.arange(C)).to(act)
+    dispatch = keep[:, :, None].to(act) * pos_onehot[:, None, :]  # [T, E, C]
+    combine = dispatch * gate.to(act)[:, None, None]
+    expert_in = (dispatch.reshape(T, E * C).t() @ tokens.to(act)).view(E, C, D)
+    h = F.gelu(torch.bmm(expert_in, params["w1"].to(act)), approximate="tanh")
+    expert_out = torch.bmm(h, params["w2"].to(act))
+    y = combine.reshape(T, E * C) @ expert_out.reshape(E * C, D)
+    aux = E * (onehot.mean(0) * probs.mean(0)).sum()
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _ffn_and_grads(ffn, params, x, dy, cfg):
+    """ffn's (y, aux) and the grads of router, w1, w2 and x under the
+    cotangents (dy, 1)."""
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+    xt = torch.from_numpy(x).to(cfg.act_dtype).requires_grad_()
+    y, aux = ffn(p, xt, cfg)
+    g = torch.autograd.grad((y, aux), [p["router"], p["w1"], p["w2"], xt],
+                            (torch.from_numpy(dy).to(y.dtype), torch.ones(())))
+    return y.detach(), aux.detach(), dict(zip(("router", "w1", "w2", "x"), g))
+
+
+# dtype -> the tolerance of the x and router grads against each leaf's max:
+# they differ from the masks' only through the order of the gate
+# cotangent's f32 sum, rounded to the activation dtype.
+INDEX_GRAD_TOL = {"f32": 1e-6, "bf16": 1e-2}
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_index_dispatch_matches_dense_masks(dtype, capacity_factor):
+    """moe_ffn's index dispatch and combine against the mask products they
+    replace: y, aux and the expert weights' grads to the bit (every mask
+    row and column holds one nonzero), the x and router grads within
+    INDEX_GRAD_TOL; at capacity 0.5 with tokens dropped."""
+    cfg = tmoe.MoEConfig(d_model=16, d_ff=32, num_experts=4, capacity_factor=capacity_factor,
+                         compute_dtype=dtype)
+    params, x = _ffn_inputs(seed=3, shape=(4, 32))
+    dy = np.random.default_rng(4).standard_normal(x.shape).astype(np.float32)
+    y, aux, grads = _ffn_and_grads(tmoe.moe_ffn, params, x, dy, cfg)
+    wy, waux, wgrads = _ffn_and_grads(_dense_moe_ffn, params, x, dy, cfg)
+    if capacity_factor < 1:
+        assert bool((y.reshape(-1, 16) == 0).all(-1).any()), "no token was dropped"
+    assert torch.equal(y, wy)
+    assert torch.equal(aux, waux)
+    for k in ("w1", "w2"):
+        assert torch.equal(grads[k], wgrads[k]), k
+    _assert_close({k: grads[k].float().numpy() for k in ("router", "x")},
+                  {k: wgrads[k].float().numpy() for k in ("router", "x")}, INDEX_GRAD_TOL[dtype])
+
+
+class _Numels(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the element count of every tensor an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.numels = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.numels += [t.numel() for t in torch.utils._pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor)]
+        return out
+
+
+def _largest_tensor(ffn, cfg, x, params):
+    """The most elements of any tensor made by ffn's forward and backward."""
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xt = x.clone().requires_grad_()
+    with _Numels() as mode:
+        y, aux = ffn(p, xt, cfg)
+        torch.autograd.grad((y.float() ** 2).sum() + aux, [xt, *p.values()])
+    return max(mode.numels)
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_index_dispatch_makes_no_token_by_slot_tensor(capacity_factor):
+    """At T = 512, E = 8 (C = 80 at capacity 1.25): no tensor of moe_ffn's
+    forward or backward reaches T·E·C elements, where the mask formulation
+    makes them; and the ``rows`` counter sums to the tokens kept (the
+    nonzero rows of y)."""
+    T, E, D = 512, 8, 16
+    cfg = tmoe.MoEConfig(d_model=D, d_ff=32, num_experts=E, capacity_factor=capacity_factor,
+                         compute_dtype="f32")
+    C = cfg.capacity(T)
+    assert C == {1.25: 80, 0.5: 32}[capacity_factor]
+    params = tmoe.init_moe_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    x = torch.randn(4, T // 4, D, generator=torch.Generator().manual_seed(6))
+    assert _largest_tensor(_dense_moe_ffn, cfg, x, params) >= T * E * C  # the check sees them
+    assert _largest_tensor(tmoe.moe_ffn, cfg, x, params) < T * E * C
+    rows = tmoe.switch_route(x.reshape(T, D), params["router"], cfg, 4, C, 0, E)["rows"]
+    y, _ = tmoe.moe_ffn(params, x, cfg)
+    kept = int((y.reshape(T, D) != 0).any(-1).sum())
+    assert int(rows.sum()) == kept
+    if capacity_factor < 1:
+        assert kept < T, "no token was dropped"
+
+
 def test_capacity_rounding():
     # Capacity rounds UP (ceil, then multiples of 8), as the reference's.
     cfg = tmoe.MoEConfig(num_experts=4, capacity_factor=1.0)

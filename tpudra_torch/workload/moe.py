@@ -2,17 +2,23 @@
 ``tpudra/workload/moe.py``; and DeepSeek-V2's dropless top-k FFN with shared
 experts (``moe_topk_ffn``), which the JAX package does not have.
 
-The same Mesh-TensorFlow dispatch/combine formulation: routing builds a
-[tokens, experts, capacity] dispatch tensor, the expert FFNs run batched
-over the expert axis, and a combine product gathers the outputs back to
-token order.  Tokens past an expert's capacity are dropped (their output
-row is zero, the residual passes them through).
+The Switch layer computes what the JAX package's Mesh-TensorFlow
+dispatch/combine products compute, by index instead of by product over
+[tokens, experts, capacity] masks: routing gives each token a slot (its
+expert's row block of a [experts, capacity] buffer, at its place in the
+expert's queue) and each slot its token (``switch_route``); dispatch
+gathers the tokens into the buffer, the expert FFNs run batched over the
+expert axis, and combine gathers each token's output row back, scaled by
+its gate.  Each mask row and column holds at most one nonzero, so the
+gathers give the products' values to the bit (the gate's gradient sums
+its row in another order).  Tokens past an expert's capacity are dropped
+(their output row is zero, the residual passes them through).
 
 Expert parallelism is explicit here, where the JAX package leaves it to
 GSPMD.  With ``ep_group``, ``w1``/``w2`` are this rank's ``E/ep`` experts
 and the tokens are the same on every rank of the group: each rank routes
 all tokens (the router is replicated), runs the dispatch, expert and
-combine products for its own experts only, and the partial outputs are
+combine steps for its own experts only, and the partial outputs are
 summed over the group.  With ``token_group`` the tokens are sharded over
 that group (data parallel) and routing is still global, as in the JAX
 program, which routes the global batch: capacity counts every rank's
@@ -95,7 +101,7 @@ def moe_ffn(params, x, cfg: MoEConfig, ep_group=None, token_group=None, seq_grou
     B, S, D = x.shape
     E = cfg.num_experts
     T = B * S
-    n_tok, tok_rank = size_and_rank(token_group)
+    n_tok, _ = size_and_rank(token_group)
     n_seq, _ = size_and_rank(seq_group)
     C = cfg.capacity(T * n_tok * n_seq)
     n_ep, ep_rank = size_and_rank(ep_group)
@@ -103,46 +109,125 @@ def moe_ffn(params, x, cfg: MoEConfig, ep_group=None, token_group=None, seq_grou
     if E_local * n_ep != E:
         raise ValueError(f"{E_local} local experts on each of {n_ep} ranks, config has {E}")
     tokens = x.reshape(T, D)
-
-    logits = tokens.float() @ params["router"]
-    probs = torch.softmax(logits, dim=-1)  # [T, E]
-    expert = probs.argmax(dim=-1)  # the first maximum, as jnp.argmax
-    gate = probs.gather(1, expert[:, None])[:, 0]  # [T]
-
-    # By comparison: F.one_hot checks its indices on the host, a device sync
-    # each call.
-    onehot = (expert[:, None] == torch.arange(E, device=x.device)).float()  # [T, E]
-    # Position of each token within its expert's queue; >= C drops.
-    position = _position(onehot.view(B, S, E), token_group, seq_group).reshape(T, E)
-    keep = (position < C) * onehot
-    # The slot's one-hot: a slot >= C (an overflowing token) gives a zero
-    # row, as jax.nn.one_hot does; F.one_hot would raise.
-    slot = position.sum(-1).long()
     act = cfg.act_dtype
-    pos_onehot = (slot[:, None] == torch.arange(C, device=x.device)).to(act)  # [T, C]
 
-    # This rank's experts.  dispatch and combine are built in the activation
-    # dtype: 0/1 masks and the gate rounded once, the values JAX casts to it.
-    lo = ep_rank * E_local
-    dispatch = keep[:, lo:lo + E_local, None].to(act) * pos_onehot[:, None, :]  # [T, El, C]
-    combine = dispatch * copy_to(gate, ep_group).to(act)[:, None, None]
-    # Dispatch → per-expert FFN → combine.  The two routing products are
-    # 2-D (aten.mm, kept by remat "dots" as JAX keeps tec,td->ecd and
-    # tec,ecd->td); the expert products carry the expert axis as a batch
-    # dim (aten.bmm, recomputed, as JAX recomputes ecd,edf->ecf).
-    routed = copy_to(tokens, ep_group).to(act)
-    expert_in = (dispatch.reshape(T, E_local * C).t() @ routed).view(E_local, C, D)
-    h = F.gelu(torch.bmm(expert_in, params["w1"].to(act)), approximate="tanh")
-    expert_out = torch.bmm(h, params["w2"].to(act))  # [El, C, D]
-    # Each row of combine holds at most one nonzero, so this product rounds
-    # once, like JAX's f32 product cast back to x's dtype.
-    y = combine.reshape(T, E_local * C) @ expert_out.reshape(E_local * C, D)
+    with record_function("moe.route"):
+        rt = switch_route(tokens, params["router"], cfg, B, C, ep_rank * E_local, E_local,
+                          token_group, seq_group)
+        # The gate rounded once to the activation dtype, the value JAX casts
+        # its combine tensor to.
+        gate = copy_to(rt["gate"], ep_group).to(act)
+        routed = copy_to(tokens, ep_group).to(act)
+        expert_in = switch_dispatch(routed, rt).view(E_local, C, D)
+    # The expert products carry the expert axis as a batch dim (aten.bmm,
+    # recomputed under remat "dots", as JAX recomputes ecd,edf->ecf).
+    with record_function("moe.experts"):
+        h = F.gelu(torch.bmm(expert_in, params["w1"].to(act)), approximate="tanh")
+        expert_out = torch.bmm(h, params["w2"].to(act))  # [El, C, D]
+    y = switch_combine(expert_out.view(E_local * C, D), gate, rt)
     y = reduce_from(y, ep_group)
 
-    frac_tokens = mean_over(mean_over(onehot.mean(0), token_group), seq_group)
-    frac_probs = mean_over(mean_over(probs.mean(0), token_group), seq_group)
+    frac_tokens = mean_over(mean_over(rt["onehot"].mean(0), token_group), seq_group)
+    frac_probs = mean_over(mean_over(rt["probs"].mean(0), token_group), seq_group)
     aux = E * (frac_tokens * frac_probs).sum()
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def switch_route(tokens, router, cfg: MoEConfig, B: int, C: int, lo: int, E_local: int,
+                 token_group=None, seq_group=None):
+    """Top-1 routing of tokens [T, D] (T = B·S, rows batch-major) at
+    capacity C, for the experts lo .. lo + E_local − 1 held here.  Returns a
+    dict: ``probs`` [T, E] (softmax of the f32 router product), ``onehot``
+    [T, E] f32 (each token's expert: the first maximum, as jnp.argmax),
+    ``gate`` [T] f32 (its probability), ``slot`` [T] (its row of the
+    [E_local·C] buffer, (expert − lo)·C + its place in the expert's queue;
+    E_local·C, one past the buffer, where it is dropped or its expert is not
+    held), ``src`` [E_local·C] (each row's token; T where the row is empty)
+    and ``rows`` [E_local] (tokens kept per held expert).  For the gathers
+    (``switch_dispatch``, ``switch_combine``): ``slot_row`` and ``src_row``,
+    the same indices clamped into range, and ``kept`` [T, 1] and ``filled``
+    [E_local·C, 1], 1 where the index is real, 0 where not, in the
+    activation dtype.  All on the device, with no host sync."""
+    T, _ = tokens.shape
+    E = cfg.num_experts
+    n_rows = E_local * C
+    probs = torch.softmax(tokens.float() @ router, dim=-1)  # [T, E]
+    expert = probs.argmax(dim=-1)  # the first maximum, as jnp.argmax
+    gate = probs.gather(1, expert[:, None])[:, 0]
+    # By comparison: F.one_hot checks its indices on the host, a device sync
+    # each call.
+    onehot = (expert[:, None] == torch.arange(E, device=tokens.device)).float()  # [T, E]
+    # Position of each token within its expert's queue; >= C drops.
+    position = _position(onehot.view(B, T // B, E), token_group, seq_group).reshape(T, E)
+    keep = ((position < C) * onehot)[:, lo:lo + E_local]  # [T, E_local]
+    kept = keep.sum(1, keepdim=True)  # [T, 1]: 1 where kept here
+    slot = torch.where(kept[:, 0] > 0, (expert - lo) * C + position.sum(-1).long(), n_rows)
+    # Every dropped token writes the spare last entry, which is cut off; the
+    # kept tokens' slots are unique.
+    src = torch.full((n_rows + 1,), T, dtype=torch.int64, device=tokens.device)
+    src = src.scatter_(0, slot, torch.arange(T, device=tokens.device))[:n_rows]
+    act = cfg.act_dtype
+    return {"probs": probs, "onehot": onehot, "gate": gate, "slot": slot, "src": src,
+            "rows": keep.sum(0).long(), "slot_row": slot.clamp(max=n_rows - 1),
+            "src_row": src.clamp(max=T - 1), "kept": kept.to(act),
+            "filled": (src < T)[:, None].to(act)}
+
+
+class _SlotGather(torch.autograd.Function):
+    """The buffer [E_local·C, D] of a Switch layer's held experts: row s is
+    token src[s]'s row of h [T, D], zero where empty.  The backward gathers
+    too: token t's gradient is the buffer gradient's row slot[t], zero where
+    it was dropped.  Every index is unique, so neither way needs atomics.
+    Indices in range, masks in h's dtype (``switch_route``'s ``*_row``,
+    ``kept`` and ``filled``)."""
+
+    @staticmethod
+    def forward(ctx, h, slot, src, kept, filled):
+        ctx.save_for_backward(slot, kept)
+        return h.index_select(0, src) * filled
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, kept = ctx.saved_tensors
+        return g.index_select(0, slot) * kept, None, None, None, None
+
+
+class _SlotCombine(torch.autograd.Function):
+    """y [T, D] = gate[t] · out[slot[t]] for the buffer's rows out
+    [E_local·C, D] back in token order, zero for a dropped token: one
+    product of two values in out's dtype, which PyTorch takes in f32 and
+    rounds once, as a mask product with one nonzero a row rounds it.
+    Backward: out's gradient is gate · gy gathered by ``src`` (rounded once,
+    zero where empty), the gate's the f32 sum over d of gy · out[slot]
+    rounded to its dtype (zero where dropped).  Indices and masks as
+    ``_SlotGather``'s; gate [T] in out's dtype."""
+
+    @staticmethod
+    def forward(ctx, out, gate, slot, src, kept, filled):
+        gate = gate[:, None] * kept  # [T, 1], 0 where dropped
+        rows = out.index_select(0, slot)
+        ctx.save_for_backward(rows, gate, src, kept, filled)
+        return rows * gate
+
+    @staticmethod
+    def backward(ctx, gy):
+        rows, gate, src, kept, filled = ctx.saved_tensors
+        g_out = (gy * gate).index_select(0, src) * filled
+        g_gate = ((gy.float() * rows).sum(-1) * kept[:, 0]).to(gate.dtype)
+        return g_out, g_gate, None, None, None, None
+
+
+def switch_dispatch(h, rt):
+    """The held experts' buffer [E_local·C, D]: h [T, D]'s row of each
+    slot's token, per ``switch_route``'s ``rt``; zeros in empty slots."""
+    return _SlotGather.apply(h, rt["slot_row"], rt["src_row"], rt["kept"], rt["filled"])
+
+
+def switch_combine(out, gate, rt):
+    """y [T, D] in out's dtype: each token's row of the buffer out
+    [E_local·C, D] times its gate [T] (out's dtype); zero where dropped."""
+    return _SlotCombine.apply(out, gate, rt["slot_row"], rt["src_row"], rt["kept"],
+                              rt["filled"])
 
 
 def _position(onehot, token_group, seq_group):
